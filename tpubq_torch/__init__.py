@@ -1,0 +1,20 @@
+"""tpubq_torch — the PyTorch / CUDA port of tpubq's Bayesian Quadrature.
+
+The serving slice of the JAX package (``tpubq``), ported to PyTorch: the
+Osborne-style BQ estimator with a GP on the log-likelihood and an
+exp-linearized GP on the likelihood, ``Z_mean``/``Z_var``, expected-squared-
+mean scoring, ``choose_next``/``add_observation`` and hyperparameter
+marginalization, for the gaussian kernel. Two kernels are written by hand for
+Hopper (sm_90a) in ``csrc/``: the fused ESM scorer and the batched Cholesky.
+
+Every function takes tensors on an explicit device; nothing probes for a GPU.
+float64 is the parity dtype; float32 is the device dtype. Matrix products must
+run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False, the
+PyTorch default): the posterior covariances are cancellation-dominated.
+"""
+
+from tpubq_torch.models.api import BQ
+from tpubq_torch.utils.options import BQOptions
+
+__version__ = "0.1.0"
+__all__ = ["BQ", "BQOptions", "__version__"]

@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels in ``tpubq_torch/csrc``.
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use, from the sources in the package only, into
+``tpubq_torch/_build/``; the library's name carries a content hash of the
+sources and flags, so an edited source never loads a stale build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("esm_fused.cu", "chol_batch.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_SIG = {
+    "tpubq_esm_fused": (
+        [_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p],
+        _i,
+    ),
+    "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _i, _p], _i),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def so_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libtpubq_kernels-{h.hexdigest()[:12]}.so"
+
+
+def build(verbose: bool = False) -> dict:
+    """Compile the library if it is not built yet → {"path", "seconds", "log"}.
+
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills per
+    kernel) and returns the compiler's report in ``log``.
+    """
+    so = so_path()
+    if so.exists() and not verbose:
+        return {"path": str(so), "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return {"path": str(so), "seconds": seconds, "log": res.stderr}
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build()["path"])
+            for name, (argtypes, restype) in _SIG.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+    return _lib

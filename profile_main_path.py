@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the time of the port's float32 main path goes on one CUDA card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 profile_main_path.py [--out profile_main_path.txt]
+
+Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
+10,000-point grid, three active steps taken first):
+
+* ``step``       — one choose_next over the grid plus one add_observation;
+* ``marginalize`` — marginalize over 100 given θ_tl samples;
+* ``sampler``    — sample_hypers(n=20), the slice sampler alone.
+
+For each piece it prints one JSON line: the host-clock wall time without the
+profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
+busy time under ``torch.profiler`` (the union of the kernels' intervals on the
+device timeline), the idle share 1 − busy / wall, and the kernel count. The
+per-operator tables go to ``--out``. Imports nothing from JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+import chip_smoke as cs
+
+
+def busy_us(events) -> tuple[float, int]:
+    """(µs covered by the union of the device kernels' intervals, kernel count)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total, len(spans)
+
+
+def profile_piece(name: str, fn, iters: int, out) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = cs.host_ms(fn, iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, n_kernels = busy_us(prof.events())
+    cs.check(n_kernels > 0, f"{name}: the profiler saw device kernels")
+    res = dict(piece=name, wall_ms=wall_ms, device_busy_ms=busy * 1e-3,
+               idle_share=max(0.0, 1.0 - busy * 1e-3 / wall_ms), device_kernels=n_kernels)
+    out.write(json.dumps(res) + "\n")
+    out.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15) + "\n")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="profile_main_path.txt")
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main_path: no CUDA device")
+    dev = torch.device("cuda", 0)
+    label = cs.nvidia_smi()
+    print(json.dumps({"card": label, "torch": torch.__version__}), flush=True)
+
+    grid = np.linspace(-4.0, 4.0, cs.G)
+    bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
+    for _ in range(3):
+        xn = bq.choose_next(grid)
+        bq.add_observation(xn, float(cs.f_l(xn)))
+    st = bq.state
+    thetas = bq.sample_hypers(n=100, seed=7)
+
+    from tpubq_torch.models import marginalize as margm
+
+    def step():
+        bq._state = st
+        xn = bq.choose_next(grid)
+        bq.add_observation(xn, float(cs.f_l(xn)))
+
+    th = torch.as_tensor(thetas, dtype=torch.float32, device=dev)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as out:
+        out.write(f"{label}\n")
+        profile_piece("step", step, args.iters, out)
+        profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), args.iters, out)
+        profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out)
+    bq._state = st
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

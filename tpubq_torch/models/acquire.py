@@ -228,7 +228,7 @@ def add_observation(state: BQState, opts: BQOptions, x_a, l_a) -> BQState:
         obs_mask=state.obs_mask | slot,
         ns=torch.clamp(state.ns + 1, max=opts.max_obs),
     )
-    return _fit_gps(st, opts, ladder=True)
+    return _fit_gps(st, opts)
 
 
 def run_active_loop(state: BQState, opts: BQOptions, loglik_fn, x_grid, n_steps: int,

@@ -120,15 +120,14 @@ def filter_candidates(x_c, x_s, obs_mask, thresh):
     return ~near
 
 
-def _fit_gps(state: BQState, opts: BQOptions, ladder: bool = True,
-             need_kinv: bool = True) -> BQState:
+def _fit_gps(state: BQState, opts: BQOptions, need_kinv: bool = True) -> BQState:
     """(Re)build candidates, linearization anchors and both GP factors."""
     kfn, _ = get_kernel(opts.kernel)
     zero = torch.zeros_like(state.l_s)
     tl_s = torch.where(state.obs_mask, log_transform(state.l_s, state.gamma), zero)
     gp_tl = gpm.gp_fit(
         kfn, state.gp_log_l.theta, state.gp_log_l.s, state.x_s, tl_s, state.obs_mask,
-        base_jitter=opts.base_jitter, ladder=ladder, need_kinv=need_kinv,
+        base_jitter=opts.base_jitter, need_kinv=need_kinv,
     )
     x_c, c_mask = choose_candidates(state.x_s, state.obs_mask, opts)
     m_tl_c = gpm.gp_mean(kfn, gp_tl, x_c)
@@ -139,7 +138,7 @@ def _fit_gps(state: BQState, opts: BQOptions, ladder: bool = True,
     sc_mask = torch.cat([state.obs_mask, c_mask], dim=0)
     gp_l = gpm.gp_fit(
         kfn, state.gp_l.theta, state.gp_l.s, x_sc, l_sc, sc_mask,
-        base_jitter=opts.base_jitter, ladder=ladder, need_kinv=need_kinv,
+        base_jitter=opts.base_jitter, need_kinv=need_kinv,
     )
     return state._replace(tl_s=tl_s, x_c=x_c, l_c=l_c, c_mask=c_mask, gp_log_l=gp_tl, gp_l=gp_l)
 
@@ -268,10 +267,10 @@ def init_state(
                       torch.zeros((nsc,), dtype=dtype, device=dev),
                       torch.zeros((nsc,), dtype=torch.bool, device=dev)),
     )
-    return _fit_gps(state, opts, True)
+    return _fit_gps(state, opts)
 
 
-def set_params(state: BQState, opts: BQOptions, theta_tl=None, theta_l=None, ladder=True,
+def set_params(state: BQState, opts: BQOptions, theta_tl=None, theta_l=None,
                s_tl=None, s_l=None, need_kinv: bool = True) -> BQState:
     """Swap kernel hyperparameters (and optionally the noise) and refactorize.
     ``theta_tl`` may be a (B, p) stack (one refit per row, batched)."""
@@ -289,16 +288,16 @@ def set_params(state: BQState, opts: BQOptions, theta_tl=None, theta_l=None, lad
         gp_l = gp_l._replace(theta=t(theta_l))
     if s_l is not None:
         gp_l = gp_l._replace(s=t(s_l))
-    return _fit_gps(state._replace(gp_log_l=gp_tl, gp_l=gp_l), opts, ladder, need_kinv)
+    return _fit_gps(state._replace(gp_log_l=gp_tl, gp_l=gp_l), opts, need_kinv)
 
 
-def apply_hyper_sample(state: BQState, opts: BQOptions, theta, ladder=True,
+def apply_hyper_sample(state: BQState, opts: BQOptions, theta,
                        need_kinv: bool = True) -> BQState:
     """Install θ_tl hyper-sample rows — (p,) or a (B, p) stack — and refactorize."""
     theta = torch.as_tensor(theta, dtype=state.x_s.dtype, device=state.x_s.device)
     p_tl = state.gp_log_l.theta.shape[-1]
     if theta.shape[-1] == p_tl:
-        return set_params(state, opts, theta_tl=theta, ladder=ladder, need_kinv=need_kinv)
+        return set_params(state, opts, theta_tl=theta, need_kinv=need_kinv)
     if theta.shape[-1] == p_tl + state.gp_l.theta.shape[-1]:
         raise NotImplementedError(
             "joint (θ_tl ∥ θ_l) hyper rows are not ported yet (ROADMAP.md, queue 1)"

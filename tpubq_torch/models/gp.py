@@ -62,26 +62,19 @@ def gp_fit(
     y,
     mask,
     base_jitter: float = 1e-12,
-    ladder: bool = True,
     need_kinv: bool = True,
 ) -> GPState:
-    """Factorize the Gram and cache (L, alpha[, K⁻¹]).
+    """Factorize the Gram through the jitter ladder and cache (L, alpha[, K⁻¹]).
 
-    ``ladder`` selects the jitter ladder (True) or one fixed-jitter
-    factorization. ``need_kinv`` forms the explicit K⁻¹ (float32 scoring
-    reads it); eager PyTorch eliminates no dead code, so paths that never read
-    it (the marginalize batch) pass False and skip the n-column solve. The
-    alpha and K⁻¹ solves are separate, as in the JAX package.
+    ``need_kinv`` forms the explicit K⁻¹ (float32 scoring reads it); eager
+    PyTorch eliminates no dead code, so paths that never read it (the
+    marginalize batch) pass False and skip the n-column solve. The alpha and
+    K⁻¹ solves are separate, as in the JAX package.
     """
     theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
     s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
     K = _gram(kfn, theta, s, x, mask)
-    if ladder:
-        L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
-    else:
-        L = linalg.cholesky_fixed(K, mask, base_jitter)
-        jit_used = base_jitter * linalg._diag_scale(K, mask)
-        ok = torch.isfinite(L).all(-1).all(-1)
+    L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
     ym = torch.where(mask, y, torch.zeros_like(y))
     alpha = linalg.chol_solve_vec(L, ym)
     Kinv = None

@@ -133,5 +133,5 @@ def sample_hypers(state: BQState, opts: BQOptions, gen: torch.Generator, n: int,
 def marginalize(state: BQState, opts: BQOptions, hyper_samples, funs=(Z_mean, Z_var)):
     """Evaluate ``funs`` under every θ_tl row of ``hyper_samples`` (B, p) as
     one batch → tuple of (B,) tensors."""
-    st = apply_hyper_sample(state, opts, hyper_samples, ladder=True, need_kinv=False)
+    st = apply_hyper_sample(state, opts, hyper_samples, need_kinv=False)
     return tuple(f(st, opts) for f in funs)

@@ -70,15 +70,14 @@ def cholesky_fixed(K: torch.Tensor, mask: torch.Tensor, jitter: float = 1e-12) -
 def posdef_cholesky_batched(A: torch.Tensor) -> torch.Tensor:
     """Cholesky of a (BT, n, n) stack of identity-padded Grams.
 
-    A float32 stack on a CUDA device with BT ≥ 8 and ``chol_batch_supported(n)``
-    goes to the hand-written ``chol_batch`` kernel (the port of the TPU's
-    ``cholesky_batch_major``); everything else goes to the library Cholesky,
-    where the JAX package sends it to ``jnp.linalg.cholesky``. Either way a
-    matrix that is not positive definite gets NaN in its own entry only.
+    A float32 stack on a CUDA device with ``chol_batch_supported(n)`` goes to
+    the hand-written ``chol_batch`` kernel (the port of the TPU's
+    ``cholesky_batch_major``), at any BT: on the H100 it beats the library
+    from BT = 2 up. Everything else goes to the library Cholesky, where the
+    JAX package sends it to ``jnp.linalg.cholesky``. Either way a matrix that
+    is not positive definite gets NaN in its own entry only.
     """
-    if A.dtype == torch.float32 and A.is_cuda and A.shape[0] >= 8 and hk.chol_batch_supported(
-        A.shape[-1]
-    ):
+    if A.dtype == torch.float32 and A.is_cuda and hk.chol_batch_supported(A.shape[-1]):
         return hk.chol_batch(A)
     return _lib_cholesky(A)
 

@@ -223,7 +223,7 @@ def test_load_tpubq_npz_bq_save(tmp_path):
     bj.add_observation(0.37, float(tp.tu.f_l(0.37)))
     path = tmp_path / "bq.npz"
     bj.save(str(path))
-    st, opts = convert.load_tpubq_npz(path)
+    st, opts = convert.load_tpubq_npz(path, device="cpu")
     assert opts.max_obs == bj.options.max_obs and opts.n_candidate == bj.options.n_candidate
     np.testing.assert_allclose(float(tbq.Z_mean(st, opts)), bj.Z_mean(), rtol=1e-9)
     np.testing.assert_allclose(float(tbq.Z_var(st, opts)), bj.Z_var(), rtol=1e-9)
@@ -233,7 +233,7 @@ def test_load_tpubq_npz_save_state(tmp_path):
     bj, _ = tp.make_pair("float64")
     path = tmp_path / "state.npz"
     jio.save_state(str(path), bj.state, bj.options)
-    st, opts = convert.load_tpubq_npz(path)
+    st, opts = convert.load_tpubq_npz(path, device="cpu")
     np.testing.assert_allclose(tp.np_(st.gp_l.Kinv), np.asarray(bj.state.gp_l.Kinv), rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(float(tbq.Z_var(st, opts)), bj.Z_var(), rtol=1e-9)
 
@@ -242,13 +242,13 @@ def test_facade_checks_and_capacity_growth():
     x = tp.tu.make_x(10)
     opts = tp.options(max_obs=10)
     bj = tpubq.BQ(x, tp.tu.f_l(x), **opts).init(params_tl=tp.PARAMS_TL, params_l=tp.PARAMS_L)
-    bt = tpubq_torch.BQ(x, tp.tu.f_l(x), **opts).init(params_tl=tp.PARAMS_TL, params_l=tp.PARAMS_L)
+    bt = tpubq_torch.BQ(x, tp.tu.f_l(x), device="cpu", **opts).init(params_tl=tp.PARAMS_TL, params_l=tp.PARAMS_L)
     with pytest.raises(ValueError, match="duplicate"):
         bt.add_observation(x[3], 0.1)
     with pytest.raises(ValueError, match="finite and positive"):
         bt.add_observation(0.31, -1.0)
     with pytest.raises(ValueError, match="unknown options"):
-        tpubq_torch.BQ(x, tp.tu.f_l(x), n_candidates=3)
+        tpubq_torch.BQ(x, tp.tu.f_l(x), device="cpu", n_candidates=3)
     bj.add_observation(0.31, float(tp.tu.f_l(0.31)))
     bt.add_observation(0.31, float(tp.tu.f_l(0.31)))
     assert bt.options.max_obs == bj.options.max_obs == 20 and bt.ns == 11
@@ -257,3 +257,24 @@ def test_facade_checks_and_capacity_growth():
     bt._state = st._replace(gp_l=st.gp_l._replace(ok=torch.tensor(False)))
     with pytest.raises(FloatingPointError):
         bt.Z_mean()
+
+
+def test_default_device_is_the_card_and_the_cpu_must_be_asked_for(tmp_path):
+    """Without ``device=`` the entry points address the CUDA card; on a
+    machine without one they raise an error that names ``device="cpu"`` and
+    never carry on on the CPU by themselves."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the error path needs one without")
+    x = tp.tu.make_x(10)
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        tpubq_torch.BQ(x, tp.tu.f_l(x), **tp.options())
+    bj, bt = tp.make_pair("float64")
+    path = tmp_path / "bq.npz"
+    bj.save(str(path))
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        convert.load_tpubq_npz(path)
+    opts = convert.options_from_dict({k: getattr(bj.options, k) for k in tp.FIELD_NAMES})
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        convert.state_from_numpy(tp.flat_state(bj.state), opts)
+    assert bt.device == torch.device("cpu") and bt.state.x_s.device.type == "cpu"
+    np.testing.assert_allclose(bt.Z_mean(), bj.Z_mean(), rtol=1e-9)

@@ -11,7 +11,9 @@ where JAX is not installed — on the card, from the repository root, with
 Tolerances: each kernel against its plain PyTorch twin on the same card and
 inputs — the batched Cholesky at rtol 2e-4 / atol 5e-5 (the pin of
 tests/test_pallas.py for the TPU kernel), the ESM scorer at 1e-4 of the
-largest score (f32 sums in another order; expf against torch.exp).
+largest score (f32 sums in another order; expf against torch.exp), the fused
+MLL-and-gradient at 1e-4 relative on the MLL and 1e-3 of the row's largest
+gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4).
 """
 
 import numpy as np
@@ -117,6 +119,54 @@ def test_esm_fused_kernel_large_capacity_reads_inverses_from_device_memory(cuda)
     torch.cuda.synchronize()
     ref = hk.esm_fused_plain(*args)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+def _mll_problem(rng, B, n, live, device):
+    x = np.sort(rng.uniform(-2.2, 2.2, n))[:, None]
+    y = np.sin(2.0 * x[:, 0]) + 0.05 * rng.randn(n)
+    thetas = np.exp(np.log([0.7, 0.8]) + 0.4 * rng.randn(B, 2))
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.as_tensor(thetas, **f32), torch.as_tensor(x, **f32), torch.as_tensor(y, **f32),
+            torch.arange(n, device=device) < live)
+
+
+@pytest.mark.parametrize("B,n,live", [(10, 32, 10), (10, 44, 22), (1, 5, 5), (3, 167, 120)])
+def test_mll_grad_kernel_matches_plain(cuda, B, n, live):
+    """The fit's shapes (10, 32) and (10, 44), a tiny problem, and the largest
+    supported n (two n × n matrices in 227 KB of shared memory)."""
+    thetas, x, y, mask = _mll_problem(np.random.RandomState(5), B, n, live, cuda)
+    assert hk.mll_grad_supported(n)
+    before = hk.mll_grad_batched.launches
+    mll, grad = hk.mll_grad_batched(thetas, 0.1, x, y, mask, jitter=1e-7)
+    mll2, grad2 = hk.mll_grad_batched(thetas, torch.tensor(0.1, device=cuda), x, y, mask, jitter=1e-7)
+    torch.cuda.synchronize()
+    assert hk.mll_grad_batched.launches == before + 2
+    assert torch.equal(mll, mll2) and torch.equal(grad, grad2)  # fixed summation order
+    ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, 0.1, x, y, mask, 1e-7)
+    torch.testing.assert_close(mll, ref_mll, rtol=1e-4, atol=0.0)
+    scale = ref_grad.abs().amax(-1, keepdim=True)
+    assert bool(((grad - ref_grad).abs() <= 1e-3 * scale).all())
+
+
+def test_mll_grad_kernel_rejects_what_it_does_not_take(cuda):
+    thetas, x, y, mask = _mll_problem(np.random.RandomState(6), 2, 168, 100, cuda)
+    assert not hk.mll_grad_supported(168)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        hk.mll_grad_batched(thetas, 0.1, x, y, mask)
+    thetas, x, y, mask = _mll_problem(np.random.RandomState(6), 2, 12, 12, cuda)
+    with pytest.raises(TypeError):
+        hk.mll_grad_batched(thetas.double(), 0.1, x, y, mask)
+    with pytest.raises(ValueError):
+        hk.mll_grad_batched(thetas, 0.1, x.cpu(), y, mask)
+
+
+def test_fit_hypers_on_card_goes_through_the_kernel(cuda):
+    bq = _testbed_bq(cuda)
+    before = hk.mll_grad_batched.launches
+    bq.fit_hypers(seed=0)
+    assert hk.mll_grad_batched.launches == before + 2 * 151
+    Z = np.exp(-0.5 * 0.2**2 / 1.25) / np.sqrt(2.0 * np.pi * 1.25)
+    assert abs(bq.Z_mean() - Z) / Z < 5e-3
 
 
 def test_wrappers_count_launches_and_reject_bad_input(cuda):

@@ -34,7 +34,7 @@ def make_pair(dtype="float64", n=10, x=None, l=None, params_tl=PARAMS_TL, params
     l = tu.f_l(x) if l is None else l
     opts = options(dtype=dtype, **overrides)
     bj = tpubq.BQ(x, l, **opts).init(params_tl=params_tl, params_l=params_l)
-    bt = tpubq_torch.BQ(x, l, **opts).init(params_tl=params_tl, params_l=params_l)
+    bt = tpubq_torch.BQ(x, l, device="cpu", **opts).init(params_tl=params_tl, params_l=params_l)
     return bj, bt
 
 

@@ -1,13 +1,17 @@
 """tpubq_torch — the PyTorch / CUDA port of tpubq's Bayesian Quadrature.
 
-The serving slice of the JAX package (``tpubq``), ported to PyTorch: the
-Osborne-style BQ estimator with a GP on the log-likelihood and an
-exp-linearized GP on the likelihood, ``Z_mean``/``Z_var``, expected-squared-
-mean scoring, ``choose_next``/``add_observation`` and hyperparameter
-marginalization, for the gaussian kernel. Two kernels are written by hand for
-Hopper (sm_90a) in ``csrc/``: the fused ESM scorer and the batched Cholesky.
+The serving and fitting slices of the JAX package (``tpubq``), ported to
+PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and an
+exp-linearized GP on the likelihood, multi-restart hyperparameter fitting,
+``Z_mean``/``Z_var``, expected-squared-mean scoring,
+``choose_next``/``add_observation`` and hyperparameter marginalization, for
+the gaussian kernel. Three kernels are written by hand for Hopper (sm_90a) in
+``csrc/``: the fused ESM scorer, the batched Cholesky and the fused
+MLL-and-gradient of the fit.
 
-Every function takes tensors on an explicit device; nothing probes for a GPU.
+The entry points (``BQ``, ``utils.convert``) run on the CUDA card unless the
+caller passes ``device="cpu"``, and raise where no card is there; the
+functions beneath them work on the device of the tensors they are given.
 float64 is the parity dtype; float32 is the device dtype. Matrix products must
 run in full float32 (``torch.backends.cuda.matmul.allow_tf32`` False, the
 PyTorch default): the posterior covariances are cancellation-dominated.

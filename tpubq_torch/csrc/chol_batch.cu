@@ -18,8 +18,12 @@
 // that is not positive definite gets NaN (sqrt of a negative pivot) in its
 // own output only, which the float32 jitter ladder reads. Entries above the
 // diagonal are exact zeros. Only the lower triangle of the input is read.
+// The column recursion itself lives in chol_columns.cuh, which mll_grad.cu
+// shares (there with a clamped pivot).
 
 #include <cuda_runtime.h>
+
+#include "chol_columns.cuh"
 
 namespace {
 
@@ -36,22 +40,7 @@ __global__ void chol_batch_kernel(const float* __restrict__ A, float* __restrict
   for (int i = tid; i < n * n; i += T) a[i] = Ab[i];
   __syncthreads();
 
-  for (int j = 0; j < n; ++j) {
-    // column j: pivot, then scale the entries below it (a[j][j] is not
-    // written here, so every thread reads the same pivot without a barrier)
-    const float d = sqrtf(a[j * n + j]);
-    for (int i = j + 1 + tid; i < n; i += T) a[i * n + j] = a[i * n + j] / d;
-    if (tid == 0) dg[j] = d;
-    __syncthreads();
-    // rank-1 update of the trailing lower triangle
-    const int m = n - j - 1;
-    for (int t = tid; t < m * m; t += T) {
-      const int i = j + 1 + t / m;
-      const int k = j + 1 + t % m;
-      if (k <= i) a[i * n + k] -= a[i * n + j] * a[k * n + j];
-    }
-    __syncthreads();
-  }
+  tpubq_dev::chol_columns<false>(a, dg, n, tid, T);
 
   for (int t = tid; t < n * n; t += T) {
     const int i = t / n;

@@ -1,9 +1,8 @@
 """The user-facing ``BQ`` class (counterpart of ``tpubq/models/api.py``).
 
-A thin stateful shell over the functional core: it owns a ``BQState`` on an
-explicit ``device`` and a ``BQOptions``. Method names and semantics follow
-the JAX package's ``BQ``; hyper fitting (``fit_hypers``/``fit``) is not
-ported yet (ROADMAP.md).
+A thin stateful shell over the functional core: it owns a ``BQState`` on a
+``device`` (the CUDA card unless the caller passes ``device="cpu"``) and a
+``BQOptions``. Method names and semantics follow the JAX package's ``BQ``.
 """
 
 from __future__ import annotations
@@ -14,7 +13,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpubq_torch.models import acquire, bq as bqm, marginalize as margm
+from tpubq_torch.models import acquire, bq as bqm, fit as fitm, marginalize as margm
+from tpubq_torch.ops import hopper_kernels as hk
+from tpubq_torch.utils.device import resolve_device
 from tpubq_torch.utils.options import FIELD_NAMES as _OPTION_KEYS, BQOptions, parse_bq_kwargs
 
 logger = logging.getLogger("tpubq_torch")
@@ -29,15 +30,18 @@ class BQ:
     Z = ∫ ℓ(x) N(x | x_mean, x_var) dx from observations ``(x, l)``.
 
     Example:
-        bq = BQ(x, l, device="cuda", dtype="float32", n_candidate=10,
-                candidate_thresh=0.5, x_mean=0., x_var=1.)
-        bq.init(params_tl=(1., 1.), params_l=(0.3, 0.4))
+        bq = BQ(x, l, dtype="float32", n_candidate=10,
+                candidate_thresh=0.5, x_mean=0., x_var=1.)    # on the card
+        bq.init(params_tl=(1., 1.), params_l=(0.3, 0.4)).fit(seed=0)
         E, V = bq.Z_mean(), bq.Z_var()
         x_next = bq.choose_next(grid, n=10)
         bq.add_observation(x_next, l(x_next))
+
+    ``device`` defaults to the CUDA card; where there is none the constructor
+    raises, and ``device="cpu"`` asks for the CPU (the float64 parity path).
     """
 
-    def __init__(self, x, l, device="cpu", **options):
+    def __init__(self, x, l, device="cuda", **options):
         x = np.asarray(x)
         if x.ndim == 1:
             x = x[:, None]
@@ -52,7 +56,7 @@ class BQ:
             bqm.validate_measure(np.asarray(self._x_var0))
         if not np.isfinite(self._gamma0) or self._gamma0 <= 0.0:
             raise ValueError(f"gamma must be finite and > 0, got {self._gamma0}")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._x0 = x
         self._l0 = l
         self._state: Optional[bqm.BQState] = None
@@ -132,6 +136,60 @@ class BQ:
         self._check_factorized()
         out = _np(acquire.expected_Z_var(self.state, self.options, x_a))
         return out[0] if self._is_single_point(x_a) else out
+
+    # ---------------------------------------------------------------- fitting
+    def fit_hypers(self, params=None, ntry: int = 10, seed=None):
+        """Multi-restart MLL fit of the named kernel parameters on both GPs.
+
+        ``params``: None fits every parameter of the family ("h", "w"); a name
+        or a tuple of names fits those and leaves the rest bit-identical;
+        naming "s" also fits the observation noise. ``ntry`` restarts advance
+        as one batch. The log-GP is fitted and installed first, then the
+        linear GP on the anchors that follow from it.
+
+        Route: float32, the gaussian kernel, d = 1 and a fixed noise go
+        through ``fit_params_fused`` (Adam over the ``mll_grad_batched``
+        kernel: launched on a CUDA device, its plain twin on the CPU) where
+        ``mll_grad_supported`` covers the GP's size; everything else through
+        the batched L-BFGS of ``fit_params`` / ``fit_params_with_noise``. The
+        route is decided here from dtype and shape; once chosen, a kernel that
+        fails to build or launch raises.
+        """
+        st, opts = self.state, self.options
+        fit_noise, free_mask = fitm.resolve_param_names(
+            opts, int(st.gp_log_l.theta.shape[0]), params
+        )
+        gen = self._generator(seed)
+        fused_ok = (not fit_noise and opts.kernel == "gaussian" and opts.dim == 1
+                    and opts.dtype == "float32")
+
+        def _fit(theta, s, x, y, mask):
+            if fit_noise:
+                return fitm.fit_params_with_noise(
+                    opts.kernel, theta, s, x, y, mask, gen, n_restart=ntry, free_mask=free_mask)
+            inits = fitm.random_restarts(gen, theta, x, y, mask, ntry, kernel=opts.kernel)
+            if fused_ok and hk.mll_grad_supported(x.shape[0]):
+                th, mll = fitm.fit_params_fused(theta, s, x, y, mask, gen, inits, free_mask=free_mask)
+            else:
+                th, mll = fitm.fit_params(
+                    opts.kernel, theta, s, x, y, mask, gen, inits, free_mask=free_mask)
+            return th, None, mll
+
+        theta_tl, s_tl, mll_tl = _fit(st.gp_log_l.theta, st.gp_log_l.s, st.x_s, st.tl_s, st.obs_mask)
+        st = bqm.set_params(st, opts, theta_tl=theta_tl, s_tl=s_tl)
+        l_sc = torch.where(st.sc_mask, st.l_sc, torch.zeros_like(st.l_sc))
+        theta_l, s_l, mll_l = _fit(st.gp_l.theta, st.gp_l.s, st.x_sc, l_sc, st.sc_mask)
+        self._state = bqm.set_params(st, opts, theta_l=theta_l, s_l=s_l)
+        if fit_noise:
+            self.s_tl = float(self._state.gp_log_l.s)
+            self.s_l = float(self._state.gp_l.s)
+        if logger.isEnabledFor(logging.DEBUG):
+            logger.debug("fit_hypers: theta_tl=%s (mll=%.4f) theta_l=%s (mll=%.4f)",
+                         _np(theta_tl), float(mll_tl), _np(theta_l), float(mll_l))
+        return self
+
+    #: The JAX package's public spelling.
+    fit = fit_hypers
 
     # ---------------------------------------------------------- hyper samples
     def _norm_params(self, params) -> tuple:

@@ -26,6 +26,7 @@ from tpubq_torch.models import gp as gpm
 from tpubq_torch.ops import integrals as igr
 from tpubq_torch.ops import linalg
 from tpubq_torch.ops.kernels import get_kernel
+from tpubq_torch.utils.device import resolve_device
 from tpubq_torch.utils.options import BQOptions
 
 
@@ -198,11 +199,12 @@ def init_state(
     gamma=1.0,
     x_mean=None,
     x_var=None,
-    device="cpu",
+    device="cuda",
 ) -> BQState:
-    """Build a BQState from raw observations on ``device``."""
+    """Build a BQState from raw observations on ``device`` (the card unless
+    the caller names another)."""
     dtype = opts.torch_dtype
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def t(v, dt=dtype):
         return torch.as_tensor(np.asarray(v), dtype=dt, device=dev)

@@ -125,3 +125,18 @@ def log_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torch
     quad = (ym * alpha).sum(-1)
     logdet = linalg.masked_logdet(L, mask)
     return -0.5 * (quad + logdet + n_live * _LOG2PI)
+
+
+def dlog_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torch.Tensor:
+    """∂MLL/∂θ by autograd through ``log_mll`` → the shape of ``theta``.
+
+    ``theta`` may be a (B, p) stack: the rows are independent, so the
+    gradient of the summed MLL is each row's own gradient. A row whose Gram
+    does not factor has a non-finite MLL and gets a NaN gradient; the other
+    rows are untouched (``cholesky_fixed`` keeps the failure inside the row).
+    """
+    theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device).detach().requires_grad_(True)
+    with torch.enable_grad():
+        val = log_mll(kfn, theta, s, x, y, mask, jitter)
+        (g,) = torch.autograd.grad(val.sum(), theta)
+    return torch.where(torch.isfinite(val)[..., None], g, torch.full_like(g, float("nan")))

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels in ``tpubq_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, from the sources in the package only, into
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one compiler
+process per source and all of them at once, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, from the sources in the package only, into
 ``tpubq_torch/_build/``; the library's name carries a content hash of the
 sources and flags, so an edited source never loads a stale build.
 """
@@ -21,19 +22,22 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("esm_fused.cu", "chol_batch.cu")
+SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu")
+#: Headers the sources include (hashed with them, never compiled alone).
+HEADERS = ("chol_columns.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIG = {
     "tpubq_esm_fused": (
         [_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p],
         _i,
     ),
     "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _i, _p], _i),
+    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _p, _p, _p], _i),
 }
 
 _lock = threading.Lock()
@@ -53,7 +57,7 @@ def nvcc_path() -> str:
 
 def so_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libtpubq_kernels-{h.hexdigest()[:12]}.so"
@@ -69,17 +73,33 @@ def build(verbose: bool = False) -> dict:
     if so.exists() and not verbose:
         return {"path": str(so), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *[str(CSRC / s) for s in SOURCES]]
+    nvcc = nvcc_path()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{pathlib.Path(src).stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+                 "-o", str(obj), str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [(p.communicate()[1], p.returncode) for p in procs]
+        for src, (err, rc) in zip(SOURCES, logs):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({rc}):\n{err}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return {"path": str(so), "seconds": seconds, "log": res.stderr}
+    return {"path": str(so), "seconds": seconds, "log": "".join(err for err, _ in logs)}
 
 
 def library():

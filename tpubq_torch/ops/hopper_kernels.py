@@ -1,21 +1,26 @@
 """Hand-written Hopper kernels and their plain PyTorch twins.
 
-Two kernels, each the port of a TPU Pallas kernel of the JAX package:
+Three kernels, each the port of a TPU Pallas kernel of the JAX package:
 
 * ``esm_fused`` (``csrc/esm_fused.cu``) ← ``tpubq/ops/pallas_kernels.py``
   ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``.
 * ``chol_batch`` (``csrc/chol_batch.cu``) ← ``cholesky_batch_major``: the
   batched float32 Cholesky behind ``marginalize``.
+* ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
+  masked log marginal likelihood and its (h, w) gradient for a batch of
+  hyperparameter rows, behind the fused multi-restart fit.
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel
 launches in a plain integer attribute (``esm_fused.launches``,
-``chol_batch.launches``), incremented where the kernel is launched and
+``chol_batch.launches``, ``mll_grad_batched.launches``), incremented where the kernel is launched and
 nowhere else. Nothing here imports a CUDA toolchain at import time: the
 library is built by ``_build`` on the first launch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,12 +32,17 @@ __all__ = [
     "chol_batch",
     "chol_batch_plain",
     "chol_batch_supported",
+    "mll_grad_batched",
+    "mll_grad_batched_plain",
+    "mll_grad_supported",
 ]
 
 #: Shared memory one block may use on H100 (227 KB).
 SMEM_LIMIT = 232448
 _ESM_THREADS = (128, 64, 32)
 _CHOL_THREADS = 256
+_MLL_THREADS = 256  # a power of two: the kernel's block-wide sums are a binary tree
+_LOG2PI = math.log(2.0 * math.pi)
 
 
 def esm_params_len(d: int) -> int:
@@ -75,6 +85,19 @@ def chol_batch_supported(n: int) -> bool:
     shared memory of one block: n ≤ 240. Larger matrices go to the library
     Cholesky."""
     return 4 * (n * n + n) <= SMEM_LIMIT
+
+
+def _mll_smem_bytes(n: int) -> int:
+    """Shared memory of one ``mll_grad`` block: two n × n matrices, five
+    n-vectors and five partial sums per thread."""
+    return 4 * (2 * n * n + 5 * n + 5 * _MLL_THREADS)
+
+
+def mll_grad_supported(n: int) -> bool:
+    """Whether ``mll_grad_batched`` covers n data rows (pads included): the
+    Gram and its inverse factor, two n × n float32 matrices, within the
+    227 KB of shared memory of one block — n ≤ 167."""
+    return n >= 1 and _mll_smem_bytes(n) <= SMEM_LIMIT
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
@@ -201,18 +224,29 @@ esm_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def chol_batch_plain(Ks: torch.Tensor) -> torch.Tensor:
-    """The right-looking column recursion of ``chol_batch`` in torch ops."""
+def _chol_columns_plain(Ks: torch.Tensor, clamp_pivot: bool) -> torch.Tensor:
+    """The right-looking column recursion of the kernels in torch ops.
+    ``clamp_pivot`` takes sqrt(max(c_jj, tiny)) with a NaN c_jj kept
+    (``mll_grad``'s contract) instead of sqrt(c_jj) (``chol_batch``'s)."""
     B, n, _ = Ks.shape
     work = Ks.clone()
     L = torch.zeros_like(Ks)
     rows = torch.arange(n, device=Ks.device)[None, :]
+    tiny = torch.finfo(Ks.dtype).tiny
     for j in range(n):
-        d = torch.sqrt(work[:, j, j])[:, None]  # (B, 1)
+        c = work[:, j, j]
+        if clamp_pivot:
+            c = torch.where(c < tiny, torch.full_like(c, tiny), c)
+        d = torch.sqrt(c)[:, None]  # (B, 1)
         l = torch.where(rows > j, work[:, :, j] / d, torch.zeros_like(work[:, :, j]))
         L[:, :, j] = l + torch.where(rows == j, d, torch.zeros_like(d))
         work = work - l[:, :, None] * l[:, None, :]
     return L
+
+
+def chol_batch_plain(Ks: torch.Tensor) -> torch.Tensor:
+    """The right-looking column recursion of ``chol_batch`` in torch ops."""
+    return _chol_columns_plain(Ks, clamp_pivot=False)
 
 
 def chol_batch(Ks: torch.Tensor) -> torch.Tensor:
@@ -249,3 +283,98 @@ def chol_batch(Ks: torch.Tensor) -> torch.Tensor:
 
 
 chol_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# mll_grad_batched
+# ---------------------------------------------------------------------------
+
+
+def mll_grad_batched_plain(thetas, s, x, y, mask, jitter: float = 1e-10):
+    """``mll_grad_batched`` step by step in torch ops (same arguments, any
+    float dtype): the Gram with identity pads and s² + jitter·h² on the live
+    diagonal, the column Cholesky with a clamped pivot, Y = L⁻¹ by forward
+    substitution one row per step, K⁻¹ = YᵀY, α = K⁻¹y, and the trace identity
+    ∂MLL/∂θ = −½ Σ (K⁻¹ − ααᵀ) ∘ ∂K/∂θ. The oracle of the kernel and its CPU
+    path."""
+    dtype, dev = x.dtype, x.device
+    n = x.shape[0]
+    h, w = thetas[:, 0], thetas[:, 1]
+    m = mask.to(dtype)
+    ym = torch.where(mask, y, torch.zeros_like(y))
+    s = torch.as_tensor(s, dtype=dtype, device=dev)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    diff = (x - x.T)[None] / w[:, None, None]  # (B, n, n)
+    r2 = diff * diff
+    h2 = (h * h)[:, None, None]
+    K0 = h2 * torch.exp(-0.5 * r2) * (m[:, None] * m[None, :])
+    K = K0 + eye * (1.0 - m) + eye * (s * s + jitter * h2) * m
+
+    L = _chol_columns_plain(K, clamp_pivot=True)
+    Y = torch.zeros_like(K)
+    for j in range(n):
+        contrib = (L[:, j, :j, None] * Y[:, :j, :]).sum(1)  # L[j, :j] @ Y[:j, :]
+        Y[:, j, :] = (eye[j] - contrib) / L[:, j, j, None]
+    Kinv = Y.transpose(1, 2) @ Y
+    alpha = (Kinv @ ym[:, None])[..., 0]  # (B, n)
+    quad = (ym * alpha).sum(-1)
+    diagL = torch.diagonal(L, dim1=-2, dim2=-1)
+    logdet = 2.0 * torch.log(torch.where(mask, diagL, torch.ones_like(diagL))).sum(-1)
+    mll = -0.5 * (quad + logdet + m.sum() * _LOG2PI)
+
+    G = Kinv - alpha[:, :, None] * alpha[:, None, :]
+    dKdh = (2.0 / h)[:, None, None] * K0 + eye * (2.0 * jitter * h)[:, None, None] * m
+    dKdw = K0 * r2 / w[:, None, None]
+    grad = torch.stack([-0.5 * (G * dKdh).sum((-1, -2)), -0.5 * (G * dKdw).sum((-1, -2))], dim=-1)
+    return mll, grad
+
+
+def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
+    """Masked log-MLL and its (h, w) gradient for a batch of hyperparameter
+    rows of the 1-D gaussian kernel → (mll (B,), grad (B, 2)).
+
+    Shapes: ``thetas`` (B, 2) positive (h, w); ``s`` a float or a 0-d tensor
+    (the noise standard deviation); ``x`` (n, 1); ``y`` (n,); ``mask`` (n,)
+    bool; float32, contiguous, one device, and ``mll_grad_supported(n)``.
+    ``jitter`` is relative to h² (the live diagonal). The pivot of the
+    Cholesky is clamped, so a row whose Gram is not positive definite comes
+    back huge or non-finite and the caller filters it. A tensor ``s`` on the
+    device costs no host sync.
+    """
+    if thetas.ndim != 2 or thetas.shape[1] != 2:
+        raise ValueError(f"mll_grad_batched: thetas must be (B, 2), got {tuple(thetas.shape)}")
+    if x.ndim != 2 or x.shape[1] != 1:
+        raise ValueError(f"mll_grad_batched: x must be (n, 1), got {tuple(x.shape)}")
+    B, n = thetas.shape[0], x.shape[0]
+    for k, t in (("y", y), ("mask", mask)):
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"mll_grad_batched: {k} has shape {tuple(t.shape)}, expected {(n,)}")
+    if mask.dtype != torch.bool or mask.device != x.device or not mask.is_contiguous():
+        raise ValueError("mll_grad_batched: mask must be a contiguous bool tensor on x's device")
+    s = torch.as_tensor(s, dtype=torch.float32, device=x.device).reshape(())
+    _check_f32("mll_grad_batched", x.device, thetas=thetas, x=x, y=y)
+    if x.device.type == "cpu":
+        return mll_grad_batched_plain(thetas, s, x, y, mask, jitter)
+    if x.device.type != "cuda":
+        raise ValueError(f"mll_grad_batched: unsupported device {x.device}")
+    if not mll_grad_supported(n):
+        raise ValueError(f"mll_grad_batched: n={n} exceeds the shared-memory budget (n <= 167)")
+    mll = torch.empty((B,), dtype=torch.float32, device=x.device)
+    grad = torch.empty((B, 2), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return mll, grad
+    from tpubq_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.tpubq_mll_grad(
+            thetas.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            float(jitter), B, n, _MLL_THREADS, _mll_smem_bytes(n), mll.data_ptr(),
+            grad.data_ptr(), _stream_ptr(x),
+        )
+        mll_grad_batched.launches += 1
+    _check(err, "mll_grad_batched")
+    return mll, grad
+
+
+mll_grad_batched.launches = 0

@@ -15,6 +15,7 @@ import torch
 from tpubq_torch.models import bq as bqm
 from tpubq_torch.models.gp import GPState
 from tpubq_torch.ops import linalg
+from tpubq_torch.utils.device import resolve_device
 from tpubq_torch.utils.options import FIELD_NAMES, BQOptions
 
 __all__ = ["options_from_dict", "state_from_numpy", "load_tpubq_npz"]
@@ -34,10 +35,11 @@ def options_from_dict(d: dict, prefix: str = "") -> BQOptions:
     return BQOptions(**{k: _scalar(d[prefix + k]) for k in FIELD_NAMES if prefix + k in d})
 
 
-def state_from_numpy(flat: dict, opts: BQOptions, device="cpu", dtype=None) -> bqm.BQState:
-    """BQState from a flat ``{field: array}`` dict (JAX checkpoint names)."""
+def state_from_numpy(flat: dict, opts: BQOptions, device="cuda", dtype=None) -> bqm.BQState:
+    """BQState from a flat ``{field: array}`` dict (JAX checkpoint names), on
+    ``device`` (the card unless the caller names another)."""
     dtype = opts.torch_dtype if dtype is None else dtype
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def t(name, leaf):
         a = np.array(flat[name])  # a writable copy
@@ -67,8 +69,9 @@ def state_from_numpy(flat: dict, opts: BQOptions, device="cpu", dtype=None) -> b
     })
 
 
-def load_tpubq_npz(path, device="cpu"):
-    """Read a checkpoint of the JAX package → (BQState, BQOptions).
+def load_tpubq_npz(path, device="cuda"):
+    """Read a checkpoint of the JAX package → (BQState, BQOptions) on
+    ``device`` (the card unless the caller names another).
 
     Accepts ``tpubq.utils.io.save_state`` files (the full state, factors
     included) and ``tpubq.BQ.save`` files (observations, hypers and options;
@@ -76,6 +79,7 @@ def load_tpubq_npz(path, device="cpu"):
     """
     with np.load(str(path), allow_pickle=False) as d:
         flat = {k: d[k] for k in d.files}
+    device = resolve_device(device)
     if "gp_l.L" in flat:
         opts = options_from_dict(flat, "__opt_")
         return state_from_numpy(flat, opts, device), opts

@@ -46,8 +46,9 @@ class BQOptions:
         ``NotImplementedError`` where a kernel is evaluated.
       dtype: "float64" (parity path) or "float32" (device path).
       base_jitter: relative diagonal conditioning added before factorizing.
-      use_pallas: carried for checkpoint compatibility (the fused-fit switch
-        of the JAX package; the port has no fit yet).
+      use_pallas: carried for checkpoint compatibility and not consulted (the
+        fused-fit switch of the JAX package; here the fused route is the
+        float32 fit of the 1-D gaussian kernel, chosen by dtype and shape).
       n_gh: Gauss–Hermite nodes of the float32 V[Z] quadrature.
       n_qmc: Halton nodes for d > 3 quadratures.
       n_series: carried for checkpoint compatibility (periodic kernels).

@@ -10,10 +10,12 @@ before the final line):
 
 0. device   — require CUDA; print the card's name and power limit
               (nvidia-smi); require full-float32 matmuls (no TF32).
-1. build    — compile the three hand-written kernels from tpubq_torch/csrc
+1. build    — compile the five hand-written kernels from tpubq_torch/csrc
               with nvcc for sm_90a; print the build seconds and ptxas' report.
 2. kernels  — each kernel against its plain PyTorch twin on the card, at the
-              main path's shapes and the ones around it, with stated tolerances.
+              main paths' shapes and the ones around them, with stated
+              tolerances; the fleet scorer and the plain batched float32
+              scorer against float64 at 28, 60 and 126 rows per problem.
 3. main     — the f32 BQ path through the BQ facade on the card: init →
               fit_hypers (10 restarts × 150 Adam steps over the mll_grad
               kernel, both GPs) → Z moments → 10 × (choose_next over 10,000
@@ -21,12 +23,21 @@ before the final line):
               marginalize(n=100), checked against the port's own float64 CPU
               path on the same data, hypers and hyper samples; every kernel's
               launch counter must grow, mll_grad's by exactly 2·(n_iter + 1).
-4. s = 0    — printed, not gated: how many active steps the float32 log-GP
+4. fleet    — the f32 fleet through the BQFleet facade on the card at full
+              width: 64 problems, a shared grid of 10,000 points, fit (all
+              64 × 10 restart rows in one mll_grad launch per Adam step) →
+              Z moments → 10 × (choose_next → add_observation), checked per
+              problem against the port's float64 CPU fleet and, for 4 of the
+              problems, against single BQs on the card; esm_fleet_l and
+              esm_fleet_tl must launch exactly once per choose_next, esm_fused
+              never, mll_grad exactly 2·(n_iter + 1) times for the whole fleet.
+5. s = 0    — printed, not gated: how many active steps the float32 log-GP
               Gram survives at s = 0 before rung 0 of the jitter ladder fails,
               with fixed hypers, after one fit, and with a refit every step.
-5. timing   — CUDA-event times of each kernel, its plain twin and the library
-              call or autograd route beside it, and host-clock times of
-              fit_hypers, add_observation and marginalize.
+6. timing   — CUDA-event times of each kernel, its plain twin and the library
+              call or nearest plain route beside it, and host-clock times of
+              fit_hypers, add_observation, marginalize and the fleet's calls
+              at B = 1, 8 and 64.
 
 Then the kernel summary line, the nvidia-smi line, and the final
 {"ok": true, ...} line. Imports nothing from JAX or the JAX package.
@@ -74,6 +85,11 @@ CHOL_BACKWARD_TOL = 1e-5  # max|L Lᵀ − K| / max|K|: ~n·eps32 for a backward
 # tolerance or at MLL_COND_FACTOR·eps32·κ, whichever is larger, with κ the
 # condition number of the row's live Gram taken in float64.
 MLL_RTOL, MLL_GRAD_NORM_TOL, MLL_COND_FACTOR = 1e-4, 1e-3, 4.0
+# The fleet fit's rows (64 problems × 10 restarts per GP): 1,280 random rows
+# reach further into the tail of eps32·κ than the 20 of a single fit, and some
+# cross MLL = 0, so their factor is larger and |MLL| is floored at the live
+# count (the size of the terms the MLL sums).
+MLL_FLEET_COND_FACTOR = 16.0
 # mll_grad against float64 autograd at well-conditioned thetas: the JAX
 # suite's pin for the TPU kernel (tests/test_pallas.py).
 MLL_PIN = dict(mll_rtol=5e-4, grad_rtol=5e-3, grad_atol=1e-3)
@@ -87,6 +103,23 @@ FIT_Z_RTOL = 5e-3  # E[Z] after the fit against the closed form (tests/test_fit.
 ZMEAN_RTOL, ZVAR_RTOL = 1e-4, 5e-2
 MARG_MEAN_RTOL = 1e-3
 ESM_ARGMAX_RTOL = 1e-5  # or twice the f32 scorer's own error on the step, if larger
+
+# The fleet: 64 problems of benchmarks/fleet_esm.py's recipe on one shared grid.
+FLEET_B, FLEET_N_OBS, FLEET_MAX_OBS, FLEET_STEPS = 64, 8, 32, 10
+FLEET_SINGLES = (0, 21, 42, 63)  # problems replayed as single BQs on the card
+FLEET_SINGLE_Z_RTOL = 1e-5
+# A fleet kernel against its plain version, per problem and per output (A, B,
+# m_a, c_a and the combined score): max|Δ| / max|plain| ≤ FLEET_NORM_TOL, or
+# twice the plain version's own distance (the largest over the case's
+# problems) to its float64 evaluation on the same float32 inputs where that is
+# larger. Near the guard's threshold the Schur
+# complement keeps only a few bits, so B = (ζ − uzᵀk)/γ of two float32
+# evaluations differs by what either differs from float64. Points where the
+# two disagree on the degenerate mask are flips: at most MAX_FLEET_FLIPS per
+# case, each with γ within the guard's own noise bound λ·kᵀ|K⁻¹|k of the
+# threshold (float64 on the same inputs).
+FLEET_NORM_TOL = 1e-4
+MAX_FLEET_FLIPS = 6
 
 
 def emit(phase: str, **kv) -> None:
@@ -336,20 +369,25 @@ def fit_problems(state):
             ("linear_gp", state.gp_l.theta, state.gp_l.s, state.x_sc, l_sc, state.sc_mask))
 
 
-def _row_errs(mll, grad, mll_ref, grad_ref):
-    """Per-row (|ΔMLL| / |MLL_ref|, max|Δgrad| / max|grad_ref|) as float64 CPU tensors."""
+def _row_errs(mll, grad, mll_ref, grad_ref, mll_floor: float = 0.0):
+    """Per-row (|ΔMLL| / max(|MLL_ref|, floor), max|Δgrad| / max|grad_ref|) as float64 CPU tensors."""
+    import torch
+
     mll, grad, mll_ref, grad_ref = (t.double().cpu() for t in (mll, grad, mll_ref, grad_ref))
-    return ((mll - mll_ref).abs() / mll_ref.abs(),
+    return ((mll - mll_ref).abs() / torch.clamp(mll_ref.abs(), min=mll_floor),
             (grad - grad_ref).abs().amax(-1) / grad_ref.abs().amax(-1))
 
 
-def mll_vs_plain(thetas, s, x, y, mask, jitter: float, **label) -> dict:
+def mll_vs_plain(thetas, s, x, y, mask, jitter: float, cond_factor: float = MLL_COND_FACTOR,
+                 mll_floor: float = 0.0, **label) -> dict:
     """Launch ``mll_grad_batched`` and its plain twin on the same inputs and
     hold the kernel to the twin row by row (see MLL_RTOL). A row that is
     non-finite on one side must be non-finite on the other, and a second
     launch must repeat the first to the bit. Also reported, not gated: each
     side's distance to the same arithmetic in float64 on the CPU. Returns the
-    case with its ``failures`` (checked by the caller after printing)."""
+    case with its ``failures`` (checked by the caller after printing).
+    ``mll_floor`` puts a floor under |MLL| in its relative error: an MLL near a
+    zero crossing is a sum of terms of the size of the live count."""
     import torch
 
     from tpubq_torch.ops import hopper_kernels as hk
@@ -359,23 +397,34 @@ def mll_vs_plain(thetas, s, x, y, mask, jitter: float, **label) -> dict:
     mll2, grad2 = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=jitter)
     torch.cuda.synchronize()
     ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, jitter)
-    m64, g64 = hk.mll_grad_batched_plain(thetas.double().cpu(), float(s), x.double().cpu(),
+    s64 = torch.as_tensor(s).double().cpu()
+    m64, g64 = hk.mll_grad_batched_plain(thetas.double().cpu(), s64, x.double().cpu(),
                                          y.double().cpu(), mask.cpu(), jitter)
     fin = lambda m, g: (torch.isfinite(m) & torch.isfinite(g).all(-1)).cpu()  # noqa: E731
     ok_k, ok_t = fin(mll, grad), fin(ref_mll, ref_grad)
-    e_mll, e_grad = _row_errs(mll, grad, ref_mll, ref_grad)
-    t_mll, t_grad = _row_errs(ref_mll, ref_grad, m64, g64)
-    k_mll, k_grad = _row_errs(mll, grad, m64, g64)
+    e_mll, e_grad = _row_errs(mll, grad, ref_mll, ref_grad, mll_floor)
+    t_mll, t_grad = _row_errs(ref_mll, ref_grad, m64, g64, mll_floor)
+    k_mll, k_grad = _row_errs(mll, grad, m64, g64, mll_floor)
     both = ok_k & ok_t
     # condition number of each row's live Gram, float64
     live = mask.cpu()
-    x64, th64 = x.double().cpu()[live], thetas.double().cpu()
-    K64 = kernels.gaussian_K(th64, x64, x64)
-    K64 = K64 + torch.eye(x64.shape[0], dtype=torch.float64) * (float(s) ** 2 + jitter * th64[:, 0] ** 2)[:, None, None]
-    ev = torch.linalg.eigvalsh(K64)
-    kappa = ev[:, -1] / torch.clamp(ev[:, 0], min=1e-300)
+    th64 = thetas.double().cpu()
+
+    def condition(th, x_live, s_):
+        K = kernels.gaussian_K(th, x_live, x_live)
+        K = K + torch.eye(x_live.shape[0], dtype=torch.float64) * (s_ ** 2 + jitter * th[:, 0] ** 2)[:, None, None]
+        ev = torch.linalg.eigvalsh(K)
+        return ev[:, -1] / torch.clamp(ev[:, 0], min=1e-300)
+
+    if x.ndim == 3:  # per-problem data: each problem's rows on its own live points
+        P = x.shape[0]
+        th_p, x_p, s_p = th64.reshape(P, -1, 2), x.double().cpu(), s64.expand(P)
+        kappa = torch.cat([condition(th_p[i], x_p[i][live[i]], s_p[i]) for i in range(P)])
+    else:
+        kappa = condition(th64, x.double().cpu()[live], s64)
     lst = lambda t: [float(v) if math.isfinite(v) else None for v in t.tolist()]  # noqa: E731
-    case = dict(**label, B=thetas.shape[0], n=x.shape[0], live=int(mask.sum()), jitter=jitter,
+    case = dict(**label, B=thetas.shape[0], n=x.shape[-2], live=int(mask.reshape(-1, mask.shape[-1])[0].sum()),
+                jitter=jitter,
                 finite_kernel=ok_k.tolist(), finite_twin=ok_t.tolist(), gram_condition=lst(kappa),
                 mll_rel=lst(e_mll), grad_norm=lst(e_grad), twin_vs_f64_mll_rel=lst(t_mll),
                 twin_vs_f64_grad_norm=lst(t_grad), kernel_vs_f64_mll_rel=lst(k_mll),
@@ -384,7 +433,10 @@ def mll_vs_plain(thetas, s, x, y, mask, jitter: float, **label) -> dict:
                                 ((grad - ref_grad).abs().amax(-1).cpu()[both]).max().item())
                 if bool(both.any()) else 0.0)
     bits = lambda t: t.view(torch.int32)  # noqa: E731
-    eps_kappa = MLL_COND_FACTOR * torch.finfo(torch.float32).eps * kappa
+    eps_kappa = cond_factor * torch.finfo(torch.float32).eps * kappa
+    over = lambda e, fixed: float((e / (torch.finfo(torch.float32).eps * kappa))[both & (e > fixed)].max()) \
+        if bool((both & (e > fixed)).any()) else 0.0  # noqa: E731
+    case["worst_over_eps32_kappa"] = dict(mll=over(e_mll, MLL_RTOL), grad=over(e_grad, MLL_GRAD_NORM_TOL))
     tol_m, tol_g = torch.clamp(eps_kappa, min=MLL_RTOL), torch.clamp(eps_kappa, min=MLL_GRAD_NORM_TOL)
     held = {
         "repeats to the bit": torch.equal(bits(mll), bits(mll2)) and torch.equal(bits(grad), bits(grad2)),
@@ -614,7 +666,471 @@ def main_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the s = 0 observation (printed, not gated)
+# the fleet: kernels against their plain versions, and the fleet path
+# ---------------------------------------------------------------------------
+
+
+def fleet_data(B: int, n_obs: int, seed: int = 0):
+    """(xs (B, n_obs), ls (B, n_obs), mus (B,)): the fleet recipe of
+    benchmarks/fleet_esm.py — jittered linspaces, ℓ_b = N(x; μ_b, 0.5²)."""
+    rng = np.random.RandomState(seed)
+    xs = np.stack([np.linspace(-2.2, 2.2, n_obs) + 0.03 * rng.standard_normal(n_obs) for _ in range(B)])
+    mus = rng.uniform(-0.5, 0.5, B)
+    return xs, fleet_lik(xs, mus[:, None]), mus
+
+
+def fleet_lik(x, mu):
+    return np.exp(-0.5 * (np.asarray(x, np.float64) - mu) ** 2 / 0.25) / math.sqrt(2.0 * math.pi * 0.25)
+
+
+def dense_fleet_data(B: int, n_obs: int, seed: int = 11):
+    """Near-capacity live sets on a domain that widens with n_obs (the
+    geometry-boundary recipe of tests/test_pallas.py), for many rows per problem."""
+    rng = np.random.RandomState(seed)
+    half = 0.09 * n_obs
+    xs = np.stack([np.sort(rng.uniform(-half, half, n_obs)) for _ in range(B)])
+    mus = rng.uniform(-0.5, 0.5, B)
+    ls = np.exp(-0.5 * (xs - mus[:, None]) ** 2) / math.sqrt(2.0 * math.pi) + 1e-3
+    return xs, ls, half
+
+
+def fleet_combine(A, Bc, dg, m_a, c_a, gamma, zTa):
+    """The lognormal combine of the two kernels' outputs → (B, G) scores."""
+    import torch
+
+    from tpubq_torch.models import acquire
+
+    E1, E2 = acquire._lognormal_moments(m_a, c_a, gamma[:, None])
+    return torch.where(dg > 0, (zTa * zTa)[:, None], A * A + 2.0 * A * Bc * E1 + Bc * Bc * E2)
+
+
+def fleet_scores_plain(states, opts, grid, dtype=None):
+    """(scores (B, G), degenerate (B, G) bool, parts) of the fleet scorer from
+    the plain versions of both kernels (no launch), in the state's dtype or,
+    with ``dtype``, on the same inputs cast to it."""
+    from tpubq_torch.models import batched
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    args_l, args_tl, zTa = batched.fleet_scorer_inputs(states, opts)
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    (params, w_l, *rest_l), (h2, w_tl, *rest_tl) = ([cast(a) for a in args] for args in (args_l, args_tl))
+    A, Bc, dg = hk.esm_fleet_l_plain(params, w_l, cast(grid), *rest_l, opts.candidate_thresh, batched._LAM_F32)
+    m_a, c_a = hk.esm_fleet_tl_plain(h2, w_tl, cast(grid), *rest_tl)
+    scores = fleet_combine(A, Bc, dg, m_a, c_a, cast(states.gamma), cast(zTa))
+    return scores, dg > 0, dict(A=A, B=Bc, m_a=m_a, c_a=c_a, esm=scores)
+
+
+def fleet_flip_margins(args_l, grid, thresh, lam, flips) -> dict:
+    """At the (problem, point) pairs ``flips`` (n, 2) where kernel and plain
+    version disagree on the degenerate mask: γ = κ − kᵀK⁻¹k, the threshold
+    max(eps32·κ, λ·kᵀ|K⁻¹|k) and the guard's noise bound λ·kᵀ|K⁻¹|k, in float64
+    from the float32 inputs. A flip one rounding may decide has |γ − thr| ≤ noise."""
+    import torch
+
+    params, w2inv, xsc, msc, Kinv, _, _ = (a.double() for a in args_l)
+    b, g = flips[:, 0], flips[:, 1]
+    diff = xsc[b] - grid.double()[g][:, None, :]  # (n, NP, d)
+    r2 = (diff * diff * w2inv[b][:, None, :]).sum(-1)
+    k = params[b, 15][:, None] * torch.exp(-r2) * msc[b]
+    s1 = (k * (Kinv[b] @ k[..., None])[..., 0]).sum(-1)
+    noise = lam * (k * (Kinv[b].abs() @ k[..., None])[..., 0]).sum(-1)
+    gam = params[b, 0] - s1
+    thr = torch.maximum(torch.finfo(torch.float32).eps * params[b, 0], noise)
+    near = ((diff.abs().amax(-1) < thresh) & (msc[b] > 0)).any(-1)
+    return dict(gamma_over_thr=(gam / thr).tolist(), near=near.tolist(),
+                within_noise=bool((((gam - thr).abs() <= noise) | near).all()))
+
+
+def fleet_vs_plain(states, opts, grid, max_flips: int = MAX_FLEET_FLIPS, skip=(), **label) -> dict:
+    """Launch ``esm_fleet_l`` and ``esm_fleet_tl`` on a fleet state and hold
+    each output, and the score they combine to, to the plain versions on the
+    same inputs by the rule at FLEET_NORM_TOL. ``skip`` lists problems whose
+    factor is non-finite: their rows must come back non-finite from both, and
+    are left out of the comparison. Returns the case with its ``failures``."""
+    import torch
+
+    from tpubq_torch.models import batched
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    thresh, lam = float(opts.candidate_thresh), batched._LAM_F32
+    args_l, args_tl, zTa = batched.fleet_scorer_inputs(states, opts)
+    params, w_l, *rest_l = args_l
+    h2, w_tl, *rest_tl = args_tl
+    A, Bc, dg = hk.esm_fleet_l(params, w_l, grid, *rest_l, thresh, lam)
+    m_a, c_a = hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl)
+    torch.cuda.synchronize()
+    out = dict(A=A, B=Bc, m_a=m_a, c_a=c_a, esm=fleet_combine(A, Bc, dg, m_a, c_a, states.gamma, zTa))
+    _, dg32, ref = fleet_scores_plain(states, opts, grid)
+    _, dg64, ref64 = fleet_scores_plain(states, opts, grid, torch.float64)
+    keep = torch.ones(A.shape[0], dtype=torch.bool, device=A.device)
+    keep[list(skip)] = False
+    flip = ((dg > 0) != dg32) & keep[:, None]
+    flips = torch.nonzero(flip)
+    same = ~flip
+    errs, own, held = {}, {}, {}
+    for name in out:
+        scale = ref64[name][keep].abs().amax(1)
+        tl_side = name in ("m_a", "c_a")  # the log-GP outputs have no mask to flip on
+        ok = torch.ones_like(same[keep]) if tl_side else same[keep]
+        e = ((out[name][keep] - ref[name][keep]).abs() * ok).amax(1).double() / scale
+        o = ((ref[name][keep].double() - ref64[name][keep]).abs() * (ok & (dg32 == dg64)[keep])).amax(1) / scale
+        errs[name], own[name] = e.max().item(), o.max().item()
+        held[name] = errs[name] <= max(2.0 * own[name], FLEET_NORM_TOL)
+    B, NP, d = args_l[2].shape
+    case = dict(**label, B=B, G=grid.shape[0], d=d, NP=NP, NP2=args_tl[2].shape[1],
+                norm_err=errs, plain_f32_vs_f64=own, degenerate_points=int(dg32[keep].sum()),
+                degenerate_flips=len(flips),
+                flips=fleet_flip_margins(args_l, grid, thresh, lam, flips[:64]) if len(flips) else None,
+                max_abs_err={n: (out[n][keep] - ref[n][keep]).abs()[same[keep] | (n in ("m_a", "c_a"))].max().item()
+                             for n in ("A", "B", "m_a", "c_a")})
+    fails = [f"{n} beyond tolerance" for n, ok in held.items() if not ok]
+    if not bool(all(torch.isfinite(v[keep]).all() for v in out.values())):
+        fails.append("non-finite output on a healthy problem")
+    for b in skip:
+        if bool(torch.isfinite(out["esm"][b]).any()) or bool(torch.isfinite(ref["esm"][b]).any()):
+            fails.append(f"problem {b} with a non-finite factor came back finite")
+    if len(flips) > max_flips:
+        fails.append(f"{len(flips)} degenerate-mask flips (at most {max_flips})")
+    if len(flips) and not case["flips"]["within_noise"]:
+        fails.append("a degenerate-mask flip away from the guard's threshold")
+    case["failures"] = fails
+    return case
+
+
+def fleet_state(dev, B, n_obs, max_obs, n_candidate=12, s=0.0, dtype="float32", per_problem=False):
+    from tpubq_torch.models import batched
+    from tpubq_torch.utils.options import BQOptions
+
+    xs, ls, _ = fleet_data(B, n_obs)
+    opts = BQOptions(n_candidate=n_candidate, candidate_thresh=0.2, max_obs=max_obs, dtype=dtype)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, s_tl=s, s_l=s, device=dev)
+    if per_problem:  # hypers and measures of their own for every problem
+        ramp = np.linspace(0.0, 1.0, B)[:, None]
+        kw.update(params_tl=np.array(PARAMS_TL) * (1.0 + 0.2 * ramp), params_l=np.array(PARAMS_L) * (1.0 + 0.3 * ramp),
+                  x_means=0.3 * (ramp[:, 0] - 0.5), x_vars=1.0 + ramp[:, 0])
+    return batched.init_batch(xs, ls, opts, **kw), opts
+
+
+def dense_fleet_state(dev, B, max_obs, n_candidate=14, dtype="float32"):
+    from tpubq_torch.models import batched
+    from tpubq_torch.utils.options import BQOptions
+
+    xs, ls, half = dense_fleet_data(B, max_obs - 6)
+    opts = BQOptions(n_candidate=n_candidate, candidate_thresh=0.12, max_obs=max_obs, dtype=dtype)
+    states = batched.init_batch(xs, ls, opts, params_tl=PARAMS_TL, params_l=PARAMS_L, s_tl=0.01, s_l=0.01,
+                                x_means=np.zeros(1), x_vars=4.0 * np.ones(1), device=dev)
+    return states, opts, half
+
+
+def fleet_state_2d(dev, B=4, dtype="float32"):
+    from tpubq_torch.models import batched
+    from tpubq_torch.utils.options import BQOptions
+
+    rng = np.random.RandomState(7)
+    xs = rng.uniform(-2.0, 2.0, (B, 9, 2))
+    mu = 0.1 * np.arange(B)[:, None, None]
+    ls = np.exp(-0.5 * ((xs - mu) ** 2).sum(-1) / 0.5) / (2.0 * math.pi * 0.5)
+    opts = BQOptions(n_candidate=8, candidate_thresh=0.25, max_obs=16, dim=2, dtype=dtype)
+    return batched.init_batch(xs, ls, opts, params_tl=(0.7, 0.8, 0.9), params_l=(0.3, 0.5, 0.6), device=dev), opts
+
+
+def check_fleet_kernels(dev) -> dict:
+    """The two fleet kernels against their plain versions at B = 64, G = 10⁴
+    for (NP, NP2) = (28, 16), (44, 32) — the fleet path's — and (60, 48); at
+    B = 6 with (126, 112) rows; at B = 4 in d = 2 with (24, 16); with
+    per-problem hypers and measures; and with one problem whose factor is
+    non-finite. Then ``mll_grad_batched`` with per-problem data (64 × 10 rows)
+    against its twin by the rule of ``check_mll``."""
+    import torch
+
+    from tpubq_torch.models import fit as fitm
+
+    grid = torch.linspace(-4.0, 4.0, G, device=dev)[:, None]
+    cases, kept = [], {}
+    for n_obs, max_obs, s in ((10, 16, 0.0), (FLEET_N_OBS, FLEET_MAX_OBS, S_MAIN), (8, 48, 0.0)):
+        states, opts = fleet_state(dev, FLEET_B, n_obs, max_obs, s=s)
+        kept[(opts.max_nsc, opts.max_obs)] = (states, opts)
+        cases.append(fleet_vs_plain(states, opts, grid, geometry="fleet recipe", s=s))
+    states, opts = fleet_state(dev, FLEET_B, 10, 16, per_problem=True)
+    cases.append(fleet_vs_plain(states, opts, grid, geometry="per-problem hypers and measures"))
+    states, opts = kept[(44, 32)]
+    nan = float("nan")
+    broken = states._replace(gp_l=states.gp_l._replace(
+        alpha=states.gp_l.alpha.index_fill(0, torch.tensor([5], device=dev), nan),
+        Kinv=states.gp_l.Kinv.index_fill(0, torch.tensor([5], device=dev), nan)))
+    cases.append(fleet_vs_plain(broken, opts, grid, skip=(5,), geometry="problem 5 with a non-finite factor"))
+    states, opts, half = dense_fleet_state(dev, 6, 112)
+    wide = torch.linspace(-half - 1.0, half + 1.0, G, device=dev)[:, None]
+    cases.append(fleet_vs_plain(states, opts, wide, geometry="near-capacity rows"))
+    states, opts = fleet_state_2d(dev)
+    g1 = torch.linspace(-3.0, 3.0, 100, device=dev)
+    grid2 = torch.stack(torch.meshgrid(g1, g1, indexing="ij"), -1).reshape(-1, 2).contiguous()
+    cases.append(fleet_vs_plain(states, opts, grid2, geometry="d = 2"))
+
+    # mll_grad with per-problem data: the fleet fit's first launch of each GP
+    st, _ = kept[(44, 32)]
+    gen = torch.Generator().manual_seed(FIT_SEED)
+    l_sc = torch.where(st.sc_mask, st.l_sc, torch.zeros_like(st.l_sc))
+    mll_cases = []
+    for name, gp, x, y, mask in (("log_gp", st.gp_log_l, st.x_s, st.tl_s, st.obs_mask),
+                                 ("linear_gp", st.gp_l, st.x_sc, l_sc, st.sc_mask)):
+        inits = fitm.random_restarts(gen, gp.theta, x, y, mask, FIT_RESTARTS)
+        mll_cases.append(mll_vs_plain(torch.exp(inits.reshape(-1, 2)), gp.s, x, y, mask, 1e-7,
+                                      cond_factor=MLL_FLEET_COND_FACTOR, mll_floor=float(mask[0].sum()),
+                                      gp=name, rows="fleet restarts", problems=x.shape[0]))
+    for c in mll_cases:  # 640 rows: keep the per-row lists out of the log
+        for key in [k for k, v in c.items() if isinstance(v, list) and k != "failures"]:
+            vals = [v for v in c.pop(key) if isinstance(v, float)]
+            if vals:
+                c[key + "_max"] = max(vals)
+        c["cond_factor"] = MLL_FLEET_COND_FACTOR
+    emit("kernels_fleet", tol_norm=FLEET_NORM_TOL, max_flips=MAX_FLEET_FLIPS, cases=cases, mll_per_problem=mll_cases)
+    for c in cases:
+        check(not c["failures"], f"fleet kernels ({c['geometry']}, NP={c['NP']}): {c['failures']}")
+    for c in mll_cases:
+        check(not c["failures"], f"mll_grad with per-problem data ({c['gp']}): {c['failures']}")
+    check({(c["NP"], c["NP2"]) for c in cases} >= {(28, 16), (44, 32), (60, 48), (126, 112), (24, 16)},
+          "fleet kernels checked at the shapes named")
+    worst = lambda names: max(c["max_abs_err"][n] for c in cases for n in names)  # noqa: E731
+    return {"l_max_abs_err": worst(("A", "B")), "tl_max_abs_err": worst(("m_a", "c_a")),
+            "mll_max_abs_err": max(c["max_abs_err"] for c in mll_cases), "states": kept}
+
+
+def fleet_precision(dev) -> dict:
+    """The fleet scorer (kernels) and the plain batched float32 scorer against
+    the float64 scorer on the same data, at 28, 60 and 126 rows per problem:
+    the measurement behind ``fleet_scorer_supported``. The float32 and the
+    float64 fleets are built from the same observations; errors are relative
+    per point. The kernels must be as close to float64 as the plain float32
+    scorer is: max error ≤ max(2 × the plain scorer's, 1e-4), the rule of
+    tests/test_pallas.py for the TPU kernel."""
+    import torch
+
+    from tpubq_torch.models import acquire, batched
+
+    out = {}
+    for rows, build in ((28, lambda dt: fleet_state(dev, 6, 10, 16, dtype=dt) + (4.0,)),
+                        (60, lambda dt: dense_fleet_state(dev, 5, 48, 12, dtype=dt)),
+                        (126, lambda dt: dense_fleet_state(dev, 3, 112, 14, dtype=dt))):
+        st32, o32, half = build("float32")
+        st64, o64, _ = build("float64")
+        check(o32.max_nsc == rows, f"precision study at {rows} rows per problem")
+        span = half if rows == 28 else half + 1.0
+        g64 = torch.linspace(-span, span, 2001, device=dev, dtype=torch.float64)[:, None]
+        g32 = g64.float()
+        truth = acquire.expected_squared_mean_xla(st64, o64, g64)
+        res = {}
+        for name, scores in (("fleet_kernels", batched.expected_squared_mean_fleet(st32, o32, g32)),
+                             ("plain_batched_f32", acquire.expected_squared_mean_xla(st32, o32, g32))):
+            rel = ((scores.double() - truth).abs() / (truth.abs() + 1e-300)).flatten()
+            res[name] = dict(q95=torch.quantile(rel, 0.95).item(), q99=torch.quantile(rel, 0.99).item(),
+                             max=rel.max().item())
+        out[f"max_nsc_{rows}"] = res
+    emit("fleet_precision", lam=batched._LAM_F32, vs="float64 scorer on the same observations", **out)
+    for rows, res in out.items():
+        check(res["fleet_kernels"]["max"] <= max(2.0 * res["plain_batched_f32"]["max"], 1e-4),
+              f"fleet kernels as close to float64 as the plain float32 scorer ({rows}: {res})")
+    return out
+
+
+def fleet_pick_gaps(st32, opts, st64, opts64, x_card, grid_dev, grid64):
+    """``pick_gap`` for every problem of a fleet at once → (gap, err, resolved,
+    f32 scores), the first three (B,). Plain versions only (no kernel launch);
+    the float64 scores on the CPU. A point counts as near an observation where
+    the card's own float32 selection excluded it. gap and err are NaN where
+    the pick is not a resolved point: the f32 scorer resolved none, or the
+    plateau (zᵀα)² that every demoted point scores lies above all its resolved
+    scores (the ESM of the linearized model can fall below the squared mean),
+    and the pick is the first admissible demoted point."""
+    import torch
+
+    from tpubq_torch.models import acquire
+
+    esm32, deg32, _ = fleet_scores_plain(st32, opts, grid_dev[:, None])
+    dist = (grid_dev[None, :, None] - st32.x_s[:, None, :, 0]).abs()
+    near = ((dist < opts.candidate_thresh) & st32.obs_mask[:, None, :]).any(-1).cpu()
+    esm32, deg32 = esm32.double().cpu(), deg32.cpu()
+    esm64 = acquire.expected_squared_mean_xla(st64, opts64, grid64[:, None])
+    ok = ~deg32 & ~near
+    ninf = torch.full_like(esm64, -math.inf)
+    best = torch.where(ok, esm64, ninf).amax(1)
+    idx = (grid64[None, :] - torch.as_tensor(x_card, dtype=torch.float64)[:, None]).abs().argmin(1)
+    at = esm64.gather(1, idx[:, None])[:, 0]
+    err = torch.where(ok, (esm32 - esm64).abs() / esm64.abs(), torch.zeros_like(esm64)).amax(1)
+    n_ok = ok.sum(1)
+    nan = torch.full_like(best, math.nan)
+    held = ok.gather(1, idx[:, None])[:, 0]
+    return torch.where(held, (best - at) / best, nan), torch.where(held, err, nan), n_ok, esm32
+
+
+def fleet_path(dev) -> dict:
+    """The fleet through ``BQFleet`` on the card at full width (see the module
+    docstring, phase 4)."""
+    import torch
+
+    from tpubq_torch import BQ, BQFleet
+    from tpubq_torch.models import acquire, bq as bqm, fit as fitm, gp as gpm
+    from tpubq_torch.ops import hopper_kernels as hk
+    from tpubq_torch.ops.kernels import get_kernel
+
+    xs, ls, mus = fleet_data(FLEET_B, FLEET_N_OBS)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2,
+              max_obs=FLEET_MAX_OBS, s=S_MAIN)
+    fleet = BQFleet(xs, ls, device=dev, dtype="float32", **kw)
+    fleet64 = BQFleet(xs, ls, device="cpu", dtype="float64", **kw)
+    opts, opts64 = fleet.options, fleet64.options
+    grid = np.linspace(-4.0, 4.0, G)
+    grid64 = torch.as_tensor(grid, dtype=torch.float64)
+    grid_dev = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    wrappers = dict(esm_fused=hk.esm_fused, chol_batch=hk.chol_batch, mll_grad=hk.mll_grad_batched,
+                    esm_fleet_l=hk.esm_fleet_l, esm_fleet_tl=hk.esm_fleet_tl)
+    counts = lambda: {k: w.launches for k, w in wrappers.items()}  # noqa: E731
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    fleet.fit(ntry=FIT_RESTARTS, seed=FIT_SEED)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - t0
+    after_fit = counts()
+    zm0, zv0 = fleet.Z_mean(), fleet.Z_var()
+    states, picks, per_step = [], [], []
+    for _ in range(FLEET_STEPS):
+        states.append(fleet.states)
+        c0 = counts()
+        xn = fleet.choose_next(grid)
+        c1 = counts()
+        fleet.add_observation(xn, fleet_lik(xn[:, 0], mus))
+        c2 = counts()
+        picks.append(xn[:, 0].copy())
+        per_step.append(dict(choose={k: c1[k] - c0[k] for k in c0}, add={k: c2[k] - c1[k] for k in c0}))
+    zm1, zv1 = fleet.Z_mean(), fleet.Z_var()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+
+    # ---- everything below compares; none of it counts as the path's launches
+    # the fit, in float64 on the CPU: not below the initial hypers for any
+    # problem, and within FIT_MLL_MARGIN of the float64 L-BFGS fit for four
+    kfn, _ = get_kernel("gaussian")
+    st64 = fleet64.states
+    th_tl = fleet.states.gp_log_l.theta.double().cpu()
+    th_l = fleet.states.gp_l.theta.double().cpu()
+    mll_tl0 = gpm.log_mll(kfn, st64.gp_log_l.theta, st64.gp_log_l.s, st64.x_s, st64.tl_s, st64.obs_mask, 1e-10)
+    mll_tl1 = gpm.log_mll(kfn, th_tl, st64.gp_log_l.s, st64.x_s, st64.tl_s, st64.obs_mask, 1e-10)
+    fit_l_gap = {}
+    gen = torch.Generator().manual_seed(FIT_SEED)
+    for i in FLEET_SINGLES:
+        one = fleet64.problem(i)
+        inits = fitm.random_restarts(gen, one.gp_log_l.theta, one.x_s, one.tl_s, one.obs_mask, FIT_RESTARTS)
+        _, mll64 = fitm.fit_params("gaussian", one.gp_log_l.theta, one.gp_log_l.s, one.x_s, one.tl_s,
+                                   one.obs_mask, gen, inits)
+        fit_l_gap[i] = float(mll64) - float(mll_tl1[i])
+    st64 = bqm.set_params(st64, opts64, theta_tl=th_tl)
+    l_sc = torch.where(st64.sc_mask, st64.l_sc, torch.zeros_like(st64.l_sc))
+    mll_l0 = gpm.log_mll(kfn, st64.gp_l.theta, st64.gp_l.s, st64.x_sc, l_sc, st64.sc_mask, 1e-10)
+    mll_l1 = gpm.log_mll(kfn, th_l, st64.gp_l.s, st64.x_sc, l_sc, st64.sc_mask, 1e-10)
+    fleet64._states = bqm.set_params(st64, opts64, theta_l=th_l)
+    rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))  # noqa: E731
+    z_rel = [rel(zm0, fleet64.Z_mean())]
+    zv_rel = [rel(zv0, fleet64.Z_var())]
+
+    # the float64 fleet follows the card's picks; each pick is held to the float64 optimum
+    gaps, errs, resolved, scores32 = [], [], [], []
+    for step, st32 in enumerate(states):
+        gap, err, n_ok, esm32 = fleet_pick_gaps(st32, opts, fleet64.states, opts64, picks[step], grid_dev, grid64)
+        gaps.append(gap)
+        errs.append(err)
+        resolved.append(n_ok)
+        scores32.append(esm32[list(FLEET_SINGLES)])
+        fleet64.add_observation(picks[step][:, None], fleet_lik(picks[step], mus))
+    z64 = (fleet64.Z_mean(), fleet64.Z_var())
+    z_rel.append(rel(zm1, z64[0]))
+    zv_rel.append(rel(zv1, z64[1]))
+    gaps, errs, resolved = torch.stack(gaps), torch.stack(errs), torch.stack(resolved)
+    gap_ok = torch.isnan(gaps) | (gaps <= torch.clamp(2.0 * errs, min=ESM_ARGMAX_RTOL))
+    gap_failures = [dict(step=int(i), problem=int(b), gap=float(gaps[i, b]), err=float(errs[i, b]),
+                         resolved=int(resolved[i, b])) for i, b in torch.nonzero(~gap_ok)[:16].tolist()]
+
+    # four of the problems as single BQs on the card, with the fleet's fitted hypers
+    singles = {}
+    for i in FLEET_SINGLES:
+        bq = BQ(xs[i], ls[i], device=dev, dtype="float32", x_mean=0.0, x_var=1.0,
+                **{k: v for k, v in kw.items() if not k.startswith("params")})
+        bq.init(params_tl=PARAMS_TL, params_l=PARAMS_L)
+        bq._state = bqm.set_params(bq.state, bq.options, theta_tl=states[0].gp_log_l.theta[i],
+                                   theta_l=states[0].gp_l.theta[i])
+        # The single BQ refits through the library's Cholesky where the fleet
+        # goes through chol_batch, and its guard, λ·ρ·κ·‖k‖₁, bounds the
+        # fleet's per-point λ·kᵀ|K⁻¹|k from above, so it demotes a superset of
+        # the fleet's degenerate points. A step agrees if the picks are equal,
+        # or the fleet's own float32 score at the single's pick is within twice
+        # the float32 scorer's error on that step of the fleet's best (a tie at
+        # float32's resolution), or the single scorer has demoted the fleet's
+        # pick to its plateau.
+        same, tie, demoted = [], [], []
+        for step in range(FLEET_STEPS):
+            x1 = bq.choose_next(grid)
+            x_fleet = torch.as_tensor(picks[step][i], dtype=torch.float32, device=dev).reshape(1, 1)
+            same.append(bool(abs(x1 - picks[step][i]) < 1e-6))
+            row = scores32[step][FLEET_SINGLES.index(i)]
+            at = lambda x: float(row[int(np.argmin(np.abs(grid - x)))])  # noqa: E731
+            tol = max(ESM_ARGMAX_RTOL, 2.0 * float(torch.nan_to_num(errs[step, i], nan=0.0)))
+            tie.append(bool(at(x1) >= at(picks[step][i]) * (1.0 - tol)))
+            demoted.append(bool(acquire._esm_affine_terms(bq.state, bq.options, x_fleet)[2][0]))
+            bq.add_observation(picks[step][i], float(fleet_lik(picks[step][i], mus[i])))
+        singles[i] = dict(same_picks=same, tie_at_f32_resolution=tie, fleet_pick_demoted_by_single_guard=demoted,
+                          Z_mean=bq.Z_mean(), Z_mean_fleet=float(zm1[i]),
+                          Z_mean_rel=abs(bq.Z_mean() - float(zm1[i])) / abs(float(zm1[i])))
+
+    # the kernels against their plain versions on every state the loop scored
+    cases = [fleet_vs_plain(st, opts, grid_dev[:, None], step=i) for i, st in enumerate(states)]
+    emit("fleet_path_kernels_vs_plain", tol_norm=FLEET_NORM_TOL, max_flips=MAX_FLEET_FLIPS, cases=cases)
+
+    truths = np.exp(-0.5 * mus**2 / 1.25) / math.sqrt(2.0 * math.pi * 1.25)
+    res = dict(
+        B=FLEET_B, G=G, max_obs=FLEET_MAX_OBS, steps=FLEET_STEPS, s=S_MAIN, seconds=seconds,
+        fit_seconds=fit_seconds, launches=launches, launches_after_fit=after_fit, per_step_launches=per_step[0],
+        mll_tl_gain_min=float((mll_tl1 - mll_tl0).min()), mll_l_gain_min=float((mll_l1 - mll_l0).min()),
+        log_gp_mll_gap_to_f64_lbfgs=fit_l_gap, Z_mean_rel=max(z_rel), Z_var_rel=max(zv_rel),
+        Z_mean_vs_truth_max_rel=rel(zm1, truths), Z_var_start_max=float(zv0.max()), Z_var_end_max=float(zv1.max()),
+        pick_gap_max=float(torch.nan_to_num(gaps, nan=0.0).max()), esm_f32_err_max=float(torch.nan_to_num(errs, nan=0.0).max()),
+        f32_resolved_points_min_per_step=resolved.min(1).values.tolist(),
+        problems_with_no_resolved_point_per_step=(resolved == 0).sum(1).tolist(),
+        picks_on_the_plateau_per_step=torch.isnan(gaps).sum(1).tolist(), pick_gap_failures=gap_failures,
+        singles=singles,
+        tol=dict(Z_mean=ZMEAN_RTOL, Z_var=ZVAR_RTOL, esm_argmax=ESM_ARGMAX_RTOL, fit_mll_margin=FIT_MLL_MARGIN,
+                 single_Z=FLEET_SINGLE_Z_RTOL),
+    )
+    emit("fleet_path", **res)
+    n_fit = 2 * (FIT_ITERS + 1)
+    check(after_fit["mll_grad"] == launches["mll_grad"] == n_fit,
+          f"the whole fleet fit launched mll_grad 2·(n_iter + 1) = {n_fit} times, got {after_fit['mll_grad']}")
+    check(all(p["choose"]["esm_fleet_l"] == 1 and p["choose"]["esm_fleet_tl"] == 1 for p in per_step),
+          "each choose_next launched esm_fleet_l and esm_fleet_tl exactly once")
+    check(launches["esm_fleet_l"] == launches["esm_fleet_tl"] == FLEET_STEPS, f"fleet scorer launches {launches}")
+    check(launches["esm_fused"] == 0, "esm_fused is not on the fleet path")
+    check(all(p["add"]["chol_batch"] >= 2 for p in per_step), "each add_observation refits through chol_batch")
+    check(res["mll_tl_gain_min"] >= 0.0 and res["mll_l_gain_min"] >= 0.0, f"the fleet fit lowered no problem's MLL ({res})")
+    check(all(g <= FIT_MLL_MARGIN for g in fit_l_gap.values()), f"fleet fit within {FIT_MLL_MARGIN} nats of the f64 fit")
+    check(res["Z_mean_rel"] <= ZMEAN_RTOL, f"fleet Z_mean f32 card vs f64 CPU ({res['Z_mean_rel']})")
+    check(res["Z_var_rel"] <= ZVAR_RTOL, f"fleet Z_var f32 card vs f64 CPU ({res['Z_var_rel']})")
+    check(bool(gap_ok.all()), "each fleet pick is the f64 ESM maximum over the resolved points, up to the f32 scorer's error")
+    check(bool((resolved[0] > 0).all()), "the f32 fleet scorer resolves points for every problem after the fit")
+    check(all(a or b or c for v in singles.values() for a, b, c in zip(
+        v["same_picks"], v["tie_at_f32_resolution"], v["fleet_pick_demoted_by_single_guard"])),
+        "single BQs on the card make the fleet's picks, up to float32 ties and their wider guard")
+    check(all(v["Z_mean_rel"] <= FLEET_SINGLE_Z_RTOL for v in singles.values()), "single BQs reach the fleet's E[Z]")
+    check(bool((zv1 < zv0).all()), "V[Z] decreased for every problem")
+    for c in cases:
+        check(not c["failures"], f"fleet kernels on the path's state {c['step']}: {c['failures']}")
+    return {"fleet": fleet, "launches": launches, "state": states[3], "opts": opts,
+            "l_max_abs_err": max(max(c["max_abs_err"][n] for n in ("A", "B")) for c in cases),
+            "tl_max_abs_err": max(max(c["max_abs_err"][n] for n in ("m_a", "c_a")) for c in cases)}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the s = 0 observation (printed, not gated)
 # ---------------------------------------------------------------------------
 
 
@@ -662,7 +1178,7 @@ def s0_observation(dev, max_steps: int = 20) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: timing
+# phase 6: timing
 # ---------------------------------------------------------------------------
 
 
@@ -732,6 +1248,77 @@ def timing(dev, mp: dict, label: str) -> dict:
     return res
 
 
+def fleet_timing(dev, fk: dict, fp: dict, mp: dict, label: str) -> dict:
+    """CUDA-event times of the two fleet kernels, their plain versions and the
+    plain batched scorer at the three B = 64 shapes; the elementwise combine
+    and the selection at the fleet path's shape; 64 back-to-back ``esm_fused``
+    launches (what scoring the fleet costs without the fleet kernels); and
+    host-clock times of ``BQFleet.choose_next`` / ``add_observation`` / ``fit``
+    at B = 1, 8 and 64."""
+    import torch
+
+    from tpubq_torch import BQFleet
+    from tpubq_torch.models import acquire, batched
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    grid = torch.linspace(-4.0, 4.0, G, device=dev)[:, None]
+    thresh, lam = 0.2, batched._LAM_F32
+    shapes = {}
+    states = {**fk["states"], (44, 32): (fp["state"], fp["opts"])}  # the path's own state after three steps
+    for (NP, NP2), (st, opts) in sorted(states.items()):
+        (params, w_l, *rest_l), (h2, w_tl, *rest_tl), _ = batched.fleet_scorer_inputs(st, opts)
+        shapes[f"{NP}x{NP2}"] = dict(
+            esm_fleet_l_ms=cuda_ms(lambda: hk.esm_fleet_l(params, w_l, grid, *rest_l, thresh, lam), 50),
+            esm_fleet_l_plain_ms=cuda_ms(lambda: hk.esm_fleet_l_plain(params, w_l, grid, *rest_l, thresh, lam), 5),
+            esm_fleet_tl_ms=cuda_ms(lambda: hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl), 50),
+            esm_fleet_tl_plain_ms=cuda_ms(lambda: hk.esm_fleet_tl_plain(h2, w_tl, grid, *rest_tl), 5),
+            plain_batched_scorer_ms=cuda_ms(lambda: acquire.expected_squared_mean_xla(st, opts, grid), 5),
+            fleet_scorer_ms=cuda_ms(lambda: batched.expected_squared_mean_fleet(st, opts, grid), 20),
+        )
+    st, opts = states[(44, 32)]
+    args_l, args_tl, zTa = batched.fleet_scorer_inputs(st, opts)
+    A, Bc, dg = hk.esm_fleet_l(args_l[0], args_l[1], grid, *args_l[2:], thresh, lam)
+    m_a, c_a = hk.esm_fleet_tl(args_tl[0], args_tl[1], grid, *args_tl[2:])
+    scores = fleet_combine(A, Bc, dg, m_a, c_a, st.gamma, zTa)
+    single_args = acquire.esm_fused_inputs(mp["bq"].state, mp["bq"].options, grid)
+    pieces = dict(
+        scorer_inputs_ms=cuda_ms(lambda: batched.fleet_scorer_inputs(st, opts), 20),
+        combine_ms=cuda_ms(lambda: fleet_combine(A, Bc, dg, m_a, c_a, st.gamma, zTa), 50),
+        demote_argmax_ms=cuda_ms(lambda: torch.argmax(acquire.demote_near_observed(
+            scores, grid, st.x_s, st.obs_mask, opts.candidate_thresh), dim=1), 20),
+        esm_fused_x64_ms=cuda_ms(lambda: [hk.esm_fused(*single_args) for _ in range(FLEET_B)], 10),
+    )
+
+    xs, ls, mus = fleet_data(FLEET_B, FLEET_N_OBS)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2,
+              max_obs=FLEET_MAX_OBS, s=S_MAIN, device=dev, dtype="float32")
+    grid_np = np.linspace(-4.0, 4.0, G)
+    facade = {}
+    for B in (1, 8, FLEET_B):
+        fleet = BQFleet(xs[:B], ls[:B], **kw)
+        st0 = fleet.states
+
+        def refit():
+            fleet._states = st0
+            fleet.fit(ntry=FIT_RESTARTS, seed=FIT_SEED)
+
+        fit_ms = host_ms(refit, 2)
+        st1 = fleet.states
+        xn = fleet.choose_next(grid_np)
+        ln = fleet_lik(xn[:, 0], mus[:B])
+
+        def add():
+            fleet._states = st1
+            fleet.add_observation(xn, ln)
+
+        choose_ms, add_ms = host_ms(lambda: fleet.choose_next(grid_np), 10), host_ms(add, 10)
+        facade[f"B{B}"] = dict(fit_ms=fit_ms, choose_next_ms=choose_ms, add_observation_ms=add_ms,
+                               problem_steps_per_s=B / ((choose_ms + add_ms) * 1e-3))
+    res = dict(card=label, G=G, B=FLEET_B, shapes=shapes, pieces_44x32=pieces, facade=facade)
+    emit("fleet_timing", **res)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -740,6 +1327,7 @@ def main() -> int:
     import tpubq_torch  # noqa: F401  (fails outside the repository)
     from tpubq_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     label = nvidia_smi()
     check(torch.backends.cuda.matmul.allow_tf32 is False, "float32 matmuls without TF32")
@@ -755,9 +1343,13 @@ def main() -> int:
     esm = check_esm(dev)
     chol = check_chol(dev)
     mll = check_mll(dev)
+    fk = check_fleet_kernels(dev)
+    fleet_precision(dev)
     mp = main_path(dev)
+    fp = fleet_path(dev)
     s0_observation(dev)
     t = timing(dev, mp, label)
+    ft = fleet_timing(dev, fk, fp, mp, label)
 
     # Bounds from this run's shapes: each input read once and each output written once
     # against the HBM rate; float32 operations (an expf counted as one) against the
@@ -769,6 +1361,17 @@ def main() -> int:
     mB, mn = FIT_RESTARTS, NP  # the linear GP's fit; the log-GP's is (10, NP2)
     mll_ops = mB * (4 * mn**3 // 3 + 27 * mn * mn)  # Cholesky, L⁻¹, YᵀY, Gram and traces
     chol_t, mll_ms = t["chol_batch"][f"{cB}x{cn}x{cn}"], t["mll_grad"][f"{mB}x{mn}"]
+    # The fleet kernels at the fleet path's shape: B problems × G points, NP rows of the
+    # linear GP and NP2 of the log-GP per problem. Bytes: every per-problem input and the
+    # grid once, the (B, G) outputs once; operations: 4 per (i, j) term of the two
+    # quadratic forms of esm_fleet_l (2 of esm_fleet_tl's one), ~12 / ~8 per row for the
+    # cross-kernel and the dots, ~40 / ~10 per point for the rest.
+    fB, fNP, fNP2 = FLEET_B, fp["opts"].max_nsc, fp["opts"].max_obs
+    fl_t = ft["shapes"][f"{fNP}x{fNP2}"]
+    fl_bytes = 4 * (fB * (16 + 1 + 4 * fNP + fNP * fNP) + G + 3 * fB * G)
+    fl_ops = fB * G * (4 * fNP * fNP + 12 * fNP + 40)
+    ftl_bytes = 4 * (fB * (2 + 3 * fNP2 + fNP2 * fNP2) + G + 2 * fB * G)
+    ftl_ops = fB * G * (2 * fNP2 * fNP2 + 8 * fNP2 + 10)
     kernels = [
         dict(name="esm_fused", route="cuda", source="tpubq_torch/csrc/esm_fused.cu",
              replaces="tpubq/ops/pallas_kernels.py:440", launches=mp["launches"]["esm_fused"],
@@ -785,8 +1388,21 @@ def main() -> int:
              max_abs_err=mll["max_abs_err"], ms=mll_ms["kernel_ms"], plain_ms=mll_ms["plain_ms"],
              **bound(4 * (2 * mB + 1 + 2 * mn) + mn + 4 * 3 * mB, mll_ops), library_ms=None,
              shape=f"({mB}, {mn})", dependent_steps=3 * mn, autograd_ms=mll_ms["autograd_ms"],
-             ms_at_10x32=t["mll_grad"][f"{mB}x{NP2}"]["kernel_ms"]),
+             ms_at_10x32=t["mll_grad"][f"{mB}x{NP2}"]["kernel_ms"],
+             fleet_launches=fp["launches"]["mll_grad"], fleet_max_abs_err=fk["mll_max_abs_err"]),
+        dict(name="esm_fleet_l", route="cuda", source="tpubq_torch/csrc/esm_fleet_l.cu",
+             replaces="tpubq/ops/pallas_kernels.py:902", launches=fp["launches"]["esm_fleet_l"],
+             max_abs_err=max(fk["l_max_abs_err"], fp["l_max_abs_err"]), ms=fl_t["esm_fleet_l_ms"],
+             plain_ms=fl_t["esm_fleet_l_plain_ms"], **bound(fl_bytes, fl_ops), library_ms=None,
+             shape=f"B={fB}, G={G}, NP={fNP}", plain_batched_scorer_ms=fl_t["plain_batched_scorer_ms"]),
+        dict(name="esm_fleet_tl", route="cuda", source="tpubq_torch/csrc/esm_fleet_tl.cu",
+             replaces="tpubq/ops/pallas_kernels.py:1011", launches=fp["launches"]["esm_fleet_tl"],
+             max_abs_err=max(fk["tl_max_abs_err"], fp["tl_max_abs_err"]), ms=fl_t["esm_fleet_tl_ms"],
+             plain_ms=fl_t["esm_fleet_tl_plain_ms"], **bound(ftl_bytes, ftl_ops), library_ms=None,
+             shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
+    kernels[1]["fleet_launches"] = fp["launches"]["chol_batch"]
+    emit("elapsed", seconds=time.perf_counter() - t_start, limit_seconds=1200)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(label, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

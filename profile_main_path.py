@@ -12,7 +12,12 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
   restarts × 150 Adam steps over the mll_grad kernel), from the initial state;
 * ``step``       — one choose_next over the grid plus one add_observation;
 * ``marginalize`` — marginalize over 100 given θ_tl samples;
-* ``sampler``    — sample_hypers(n=20), the slice sampler alone.
+* ``sampler``    — sample_hypers(n=20), the slice sampler alone;
+* ``fleet_fit``  — ``BQFleet.fit`` of 64 problems (64 × 10 restart rows per
+  mll_grad launch), from the initial fleet state;
+* ``fleet_step`` — one ``BQFleet.choose_next`` over the grid plus one
+  ``add_observation`` at B = 64 (the fleet of chip_smoke.py, after the fit and
+  three steps).
 
 For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
@@ -109,8 +114,35 @@ def main() -> int:
         profile_piece("step", step, args.iters, out)
         profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), args.iters, out)
         profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out)
+        profile_fleet(dev, grid, args.iters, out)
     bq._state = st
     return 0
+
+
+def profile_fleet(dev, grid, iters: int, out) -> None:
+    from tpubq_torch import BQFleet
+
+    xs, ls, mus = cs.fleet_data(cs.FLEET_B, cs.FLEET_N_OBS)
+    fleet = BQFleet(xs, ls, device=dev, dtype="float32", params_tl=cs.PARAMS_TL, params_l=cs.PARAMS_L,
+                    n_candidate=12, candidate_thresh=0.2, max_obs=cs.FLEET_MAX_OBS, s=cs.S_MAIN)
+    st0 = fleet.states
+
+    def fit():
+        fleet._states = st0
+        fleet.fit(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
+
+    profile_piece("fleet_fit", fit, 3, out)
+    for _ in range(3):
+        xn = fleet.choose_next(grid)
+        fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
+    st = fleet.states
+
+    def step():
+        fleet._states = st
+        xn = fleet.choose_next(grid)
+        fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
+
+    profile_piece("fleet_step", step, iters, out)
 
 
 if __name__ == "__main__":

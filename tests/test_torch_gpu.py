@@ -13,15 +13,20 @@ inputs — the batched Cholesky at rtol 2e-4 / atol 5e-5 (the pin of
 tests/test_pallas.py for the TPU kernel), the ESM scorer at 1e-4 of the
 largest score (f32 sums in another order; expf against torch.exp), the fused
 MLL-and-gradient at 1e-4 relative on the MLL and 1e-3 of the row's largest
-gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4).
+gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4); the
+two fleet scorer kernels, on fleets with noise 0.05, at 1e-4 of each problem's
+largest value for m_a, c_a, A and the combined score and 1e-3 for B (a
+quotient by the Schur complement), off the few points where the degenerate
+masks differ.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpubq_torch.models import acquire
+from tpubq_torch.models import acquire, batched
 from tpubq_torch.ops import hopper_kernels as hk
+from tpubq_torch.utils.options import BQOptions
 
 pytestmark = pytest.mark.gpu
 
@@ -188,3 +193,125 @@ def test_main_path_on_card_goes_through_both_kernels(cuda):
     assert hk.esm_fused.launches == e0 + 1
     assert hk.chol_batch.launches == c0 + 1
     assert np.isfinite(x) and np.all(np.isfinite(zm)) and np.all(zv >= 0)
+
+
+# ---------------------------------------------------------------------------
+# the fleet
+# ---------------------------------------------------------------------------
+
+
+def _fleet_data(B, n_obs, d=1, seed=0):
+    rng = np.random.RandomState(seed)
+    if d == 1:
+        xs = np.stack([np.linspace(-2.2, 2.2, n_obs) + 0.03 * rng.standard_normal(n_obs) for _ in range(B)])
+        mus = rng.uniform(-0.5, 0.5, B)
+        return xs, np.exp(-0.5 * (xs - mus[:, None]) ** 2 / 0.25) / np.sqrt(2 * np.pi * 0.25)
+    xs = rng.uniform(-2.0, 2.0, (B, n_obs, d))
+    return xs, np.exp(-0.5 * (xs**2).sum(-1) / 0.5) / (2.0 * np.pi * 0.5)
+
+
+def _fleet_state(device, B, n_obs, max_obs, n_candidate=12, d=1, s=0.05):
+    xs, ls = _fleet_data(B, n_obs, d)
+    opts = BQOptions(n_candidate=n_candidate, candidate_thresh=0.2, max_obs=max_obs, dim=d, dtype="float32")
+    kw = dict(params_tl=(0.7,) + (0.8,) * d, params_l=(0.3,) + (0.4,) * d, s_tl=s, s_l=s, device=device)
+    return batched.init_batch(xs, ls, opts, **kw), opts
+
+
+def _normwise(a, b, where=None):
+    diff = (a - b).abs() if where is None else (a - b).abs() * where
+    return float((diff.amax(1) / b.abs().amax(1)).max())
+
+
+@pytest.mark.parametrize("B,n_obs,max_obs,d", [(64, 10, 16, 1), (8, 8, 48, 1), (5, 9, 16, 2)])
+def test_fleet_kernels_match_plain(cuda, B, n_obs, max_obs, d):
+    """(NP, NP2) = (28, 16) at B = 64, (60, 48), and d = 2: both kernels against
+    their plain versions, and one launch counted for each."""
+    states, opts = _fleet_state(cuda, B, n_obs, max_obs, d=d)
+    if d == 1:
+        grid = torch.linspace(-4.0, 4.0, 5001, device=cuda)[:, None]
+    else:
+        grid = torch.as_tensor(np.random.RandomState(1).uniform(-3, 3, (3000, 2)), dtype=torch.float32, device=cuda)
+    (params, w_l, *rest_l), (h2, w_tl, *rest_tl), zTa = batched.fleet_scorer_inputs(states, opts)
+    lam = batched._LAM_F32
+    before = hk.esm_fleet_l.launches, hk.esm_fleet_tl.launches
+    A, Bc, dg = hk.esm_fleet_l(params, w_l, grid, *rest_l, 0.2, lam)
+    m_a, c_a = hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl)
+    torch.cuda.synchronize()
+    assert (hk.esm_fleet_l.launches, hk.esm_fleet_tl.launches) == (before[0] + 1, before[1] + 1)
+    A0, B0, dg0 = hk.esm_fleet_l_plain(params, w_l, grid, *rest_l, 0.2, lam)
+    m0, c0 = hk.esm_fleet_tl_plain(h2, w_tl, grid, *rest_tl)
+    same = dg == dg0
+    assert int((~same).sum()) <= 6
+    assert _normwise(m_a, m0) <= 1e-4 and _normwise(c_a, c0) <= 1e-4
+    assert _normwise(A, A0, same) <= 1e-4 and _normwise(Bc, B0, same) <= 1e-3
+
+    def combine(A, Bc, dg, m, c):
+        E1, E2 = acquire._lognormal_moments(m, c, states.gamma[:, None])
+        return torch.where(dg > 0, (zTa * zTa)[:, None], A * A + 2.0 * A * Bc * E1 + Bc * Bc * E2)
+
+    assert _normwise(combine(A, Bc, dg, m_a, c_a), combine(A0, B0, dg0, m0, c0), same) <= 1e-4
+    # and through the dispatching entry point
+    out = batched.expected_squared_mean_batch(states, opts, grid)
+    assert hk.esm_fleet_l.launches == before[0] + 2 and out.shape == (B, grid.shape[0])
+
+
+def test_fleet_kernels_raise_on_what_they_do_not_take(cuda):
+    """A size beyond shared memory, a float64 tensor and a tensor on another
+    device raise; nothing falls back to the plain version."""
+    B, NP = 2, 224
+    assert not hk.esm_fleet_l_supported(NP, 1)
+    f = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    grid = torch.linspace(-1, 1, 64, device=cuda)[:, None]
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        hk.esm_fleet_l(f(B, hk.FLEET_PARAMS), f(B, 1), grid, f(B, NP, 1), f(B, NP), f(B, NP, NP), f(B, NP),
+                       f(B, NP), 0.2, 1e-6)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        hk.esm_fleet_tl(f(B), f(B, 1), grid, f(B, NP, 1), f(B, NP), f(B, NP, NP), f(B, NP))
+    states, opts = _fleet_state(cuda, 3, 8, 16)
+    (params, w_l, *rest_l), (h2, w_tl, *rest_tl), _ = batched.fleet_scorer_inputs(states, opts)
+    with pytest.raises(TypeError):
+        hk.esm_fleet_tl(h2.double(), w_tl, grid, *rest_tl)
+    with pytest.raises(ValueError, match="is on"):
+        hk.esm_fleet_l(params.cpu(), w_l, grid, *rest_l, 0.2, 1e-6)
+
+
+def test_mll_grad_kernel_per_problem_data_matches_plain(cuda):
+    """640 rows on 64 problems' data in one launch against the twin, and a
+    fleet of one problem against the shared-data form to the bit."""
+    states, _ = _fleet_state(cuda, 64, 8, 32, s=0.1)
+    x, y, mask, s = states.x_s, states.tl_s, states.obs_mask, states.gp_log_l.s
+    rng = np.random.RandomState(3)
+    thetas = torch.as_tensor(np.exp(np.log([0.7, 0.8]) + 0.4 * rng.randn(640, 2)), dtype=torch.float32, device=cuda)
+    before = hk.mll_grad_batched.launches
+    mll, grad = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7)
+    torch.cuda.synchronize()
+    assert hk.mll_grad_batched.launches == before + 1
+    ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, 1e-7)
+    torch.testing.assert_close(mll, ref_mll, rtol=1e-4, atol=1e-4)
+    assert bool(((grad - ref_grad).abs() <= 1e-3 * ref_grad.abs().amax(-1, keepdim=True)).all())
+    one = hk.mll_grad_batched(thetas[:10], s[:1], x[:1], y[:1], mask[:1], jitter=1e-7)
+    shared = hk.mll_grad_batched(thetas[:10], s[0], x[0], y[0], mask[0], jitter=1e-7)
+    assert torch.equal(one[0], shared[0]) and torch.equal(one[1], shared[1])
+    assert torch.equal(one[0], mll[:10]) and torch.equal(one[1], grad[:10])
+
+
+def test_fleet_default_device_is_the_card_and_goes_through_the_kernels(cuda):
+    import tpubq_torch
+
+    xs, ls = _fleet_data(8, 8)
+    fleet = tpubq_torch.BQFleet(xs, ls, params_tl=PARAMS_TL, params_l=PARAMS_L, dtype="float32",
+                                n_candidate=12, candidate_thresh=0.2, max_obs=16, s=0.01)
+    assert fleet.device.type == "cuda" and fleet.states.gp_l.Kinv.is_cuda
+    counts = lambda: (hk.esm_fleet_l.launches, hk.esm_fleet_tl.launches, hk.esm_fused.launches,  # noqa: E731
+                      hk.chol_batch.launches, hk.mll_grad_batched.launches)
+    c0 = counts()
+    fleet.fit(seed=0)
+    c1 = counts()
+    assert c1[4] == c0[4] + 2 * 151 and c1[:3] == c0[:3]
+    x_next = fleet.choose_next(np.linspace(-4.0, 4.0, 2001))
+    c2 = counts()
+    assert c2[0] == c1[0] + 1 and c2[1] == c1[1] + 1 and c2[2] == c1[2]
+    fleet.add_observation(x_next, np.full(8, 0.3))
+    c3 = counts()
+    assert c3[3] >= c2[3] + 2 and fleet.ns.tolist() == [9] * 8
+    assert np.all(np.isfinite(fleet.Z_mean())) and np.all(fleet.Z_var() >= 0)

@@ -1,15 +1,16 @@
 """tpubq_torch — the PyTorch / CUDA port of tpubq's Bayesian Quadrature.
 
-The serving and fitting slices of the JAX package (``tpubq``), ported to
-PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and an
-exp-linearized GP on the likelihood, multi-restart hyperparameter fitting,
+The serving, fitting and fleet slices of the JAX package (``tpubq``), ported
+to PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and
+an exp-linearized GP on the likelihood, multi-restart hyperparameter fitting,
 ``Z_mean``/``Z_var``, expected-squared-mean scoring,
-``choose_next``/``add_observation`` and hyperparameter marginalization, for
-the gaussian kernel. Three kernels are written by hand for Hopper (sm_90a) in
-``csrc/``: the fused ESM scorer, the batched Cholesky and the fused
-MLL-and-gradient of the fit.
+``choose_next``/``add_observation``, hyperparameter marginalization, and the
+fleet (``BQFleet``: B independent problems advanced together), for the
+gaussian kernel. Five kernels are written by hand for Hopper (sm_90a) in
+``csrc/``: the fused ESM scorer, the batched Cholesky, the fused
+MLL-and-gradient of the fit and the two halves of the fleet scorer.
 
-The entry points (``BQ``, ``utils.convert``) run on the CUDA card unless the
+The entry points (``BQ``, ``BQFleet``, ``utils.convert``) run on the CUDA card unless the
 caller passes ``device="cpu"``, and raise where no card is there; the
 functions beneath them work on the device of the tensors they are given.
 float64 is the parity dtype; float32 is the device dtype. Matrix products must
@@ -18,7 +19,8 @@ PyTorch default): the posterior covariances are cancellation-dominated.
 """
 
 from tpubq_torch.models.api import BQ
+from tpubq_torch.models.batched import BQFleet
 from tpubq_torch.utils.options import BQOptions
 
 __version__ = "0.1.0"
-__all__ = ["BQ", "BQOptions", "__version__"]
+__all__ = ["BQ", "BQFleet", "BQOptions", "__version__"]

@@ -1,6 +1,9 @@
 // Masked GP log marginal likelihood and its (h, w) gradient for a batch of
-// hyperparameter rows: thetas (B, 2), one shared 1-D data set -> mll (B,),
-// grad (B, 2).
+// hyperparameter rows: thetas (B, 2) -> mll (B,), grad (B, 2). The rows share
+// one 1-D data set, or each run of `rows_per_problem` consecutive rows has a
+// data set (x, y, mask, s) of its own, `data_stride` elements after the one
+// before (the fleet fit: every problem's restarts in one launch). With shared
+// data the strides are 0 and every block reads the same addresses.
 //
 // Replaces the TPU kernel `mll_grad_batched` (tpubq/ops/pallas_kernels.py,
 // `_mll_kernel` with `_chol_body` and `_tri_inv_body`), the engine of the
@@ -45,6 +48,7 @@ constexpr int kSums = 5;  // dmll/dh, dmll/dw, y^T alpha, sum log L_ii, n_live
 __global__ void mll_grad_kernel(const float* __restrict__ thetas, const float* __restrict__ s_ptr,
                                 const float* __restrict__ x, const float* __restrict__ y,
                                 const unsigned char* __restrict__ mask, float jitter, int n,
+                                int rows_per_problem, int data_stride, int s_stride,
                                 float* __restrict__ mll, float* __restrict__ grad) {
   extern __shared__ float smem[];
   float* a = smem;          // [n][n] Gram, then L below the diagonal, then K^-1
@@ -58,10 +62,14 @@ __global__ void mll_grad_kernel(const float* __restrict__ thetas, const float* _
   const int T = blockDim.x;
   const int tid = threadIdx.x;
   const int b = blockIdx.x;
+  const int problem = b / rows_per_problem;
+  x += (size_t)problem * data_stride;
+  y += (size_t)problem * data_stride;
+  mask += (size_t)problem * data_stride;
   const float h = thetas[2 * b];
   const float w = thetas[2 * b + 1];
   const float h2 = h * h;
-  const float s = s_ptr[0];
+  const float s = s_ptr[(size_t)problem * s_stride];
   const float s2 = s * s;
 
   for (int i = tid; i < n; i += T) {
@@ -152,15 +160,19 @@ __global__ void mll_grad_kernel(const float* __restrict__ thetas, const float* _
 }  // namespace
 
 // `threads` must be a power of two; smem_bytes = 4 (2 n^2 + 5 n + 5 threads).
+// Shared data: rows_per_problem = B, data_stride = s_stride = 0. Per-problem
+// data: data_stride = n, s_stride = 1 (0 for one shared noise).
 extern "C" int tpubq_mll_grad(const float* thetas, const float* s, const float* x, const float* y,
-                              const unsigned char* mask, float jitter, int B, int n, int threads,
+                              const unsigned char* mask, float jitter, int B, int n,
+                              int rows_per_problem, int data_stride, int s_stride, int threads,
                               int smem_bytes, float* mll, float* grad, void* stream) {
+  if (rows_per_problem < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         mll_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   mll_grad_kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      thetas, s, x, y, mask, jitter, n, mll, grad);
+      thetas, s, x, y, mask, jitter, n, rows_per_problem, data_stride, s_stride, mll, grad);
   return static_cast<int>(cudaGetLastError());
 }

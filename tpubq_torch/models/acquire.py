@@ -57,15 +57,17 @@ def demote_near_observed(scores, x_a, x_s, obs_mask, thresh):
     """Selection-only transform: grid points within ``thresh`` (sup-norm) of a
     live observation are excluded from the argmax; when every point is
     excluded, a distance-proportional demotion picks the point farthest from
-    observed territory. Reported scores are not changed."""
-    dist = (x_a[:, None, :] - x_s[None, :, :]).abs().amax(-1)
-    dist = torch.where(obs_mask[None, :], dist, torch.full_like(dist, math.inf))
-    d_min = dist.amin(1)
+    observed territory. Reported scores are not changed. ``scores``, ``x_s``
+    and ``obs_mask`` may carry a leading problem axis over a shared ``x_a``;
+    the all-excluded fallback is then decided per problem."""
+    dist = (x_a[:, None, :] - x_s[..., None, :, :]).abs().amax(-1)
+    dist = torch.where(obs_mask[..., None, :], dist, torch.full_like(dist, math.inf))
+    d_min = dist.amin(-1)
     near = d_min < thresh
     closeness = torch.clamp(1.0 - d_min / thresh, 0.0, 1.0)
     demoted = scores - closeness * (0.25 * scores.abs() + 1e-20)
     excluded = torch.where(near, torch.full_like(scores, -math.inf), scores)
-    return torch.where(near.all(), demoted, excluded)
+    return torch.where(near.all(-1, keepdim=True), demoted, excluded)
 
 
 def as_points(x_a, dim: int, dtype, device):
@@ -99,7 +101,9 @@ def _lognormal_moments(m, c, gamma):
 
 
 def _esm_affine_terms(state: BQState, opts: BQOptions, x_a):
-    """(A, B, degenerate, zᵀα, m_a, c_a) of the ESM.
+    """(A, B, degenerate, zᵀα, m_a, c_a) of the ESM. A fleet state (a leading
+    problem axis on every leaf) scores a shared (na, d) or a per-problem
+    (B, na, d) ``x_a`` in batched tensor ops.
 
     float32 applies the cached K⁻¹ and floors γ_s at the adaptive noise
     bound λ·ρ·κ·‖k‖₁ (ρ the max absolute row sum of K⁻¹): with an
@@ -117,40 +121,42 @@ def _esm_affine_terms(state: BQState, opts: BQOptions, x_a):
     zTalpha = (z * alpha).sum(-1)
     use_kinv = dtype == torch.float32
 
-    k_a = kfn(gp_l.theta, state.x_sc, x_a) * m_sc.to(dtype)[:, None]  # (nsc, na)
+    k_a = kfn(gp_l.theta, state.x_sc, x_a) * m_sc.to(dtype)[..., :, None]  # (..., nsc, na)
     v = gp_l.Kinv @ k_a if use_kinv else linalg.chol_solve(gp_l.L, k_a)
-    kappa = kdiagfn(gp_l.theta, x_a) + gp_l.s * gp_l.s + gp_l.jitter
-    gam_s = kappa - (k_a * v).sum(0)
+    kappa = kdiagfn(gp_l.theta, x_a) + (gp_l.s * gp_l.s + gp_l.jitter)[..., None]
+    gam_s = kappa - (k_a * v).sum(-2)
 
-    dist = (x_a[:, None, :] - state.x_sc[None, :, :]).abs().amax(-1)
-    too_close = ((dist < opts.candidate_thresh) & m_sc[None, :]).any(1)
+    dist = (x_a[..., :, None, :] - state.x_sc[..., None, :, :]).abs().amax(-1)
+    too_close = ((dist < opts.candidate_thresh) & m_sc[..., None, :]).any(-1)
     gam_floor = torch.finfo(dtype).eps * kappa
     if use_kinv:
-        rho = gp_l.Kinv.abs().sum(1).amax()
-        gam_floor = torch.maximum(gam_floor, (_LAM_F32 * rho) * kappa * k_a.sum(0))
+        rho = gp_l.Kinv.abs().sum(-1).amax(-1)
+        gam_floor = torch.maximum(gam_floor, (_LAM_F32 * rho)[..., None] * kappa * k_a.sum(-2))
     degenerate = too_close | (gam_s <= gam_floor)
     safe_gam = torch.where(degenerate, torch.ones_like(gam_s), gam_s)
 
-    B = (zeta - z @ v) / safe_gam
-    A = zTalpha - B * (k_a.T @ alpha)
+    B = (zeta - (z[..., None, :] @ v)[..., 0, :]) / safe_gam
+    A = zTalpha[..., None] - B * (alpha[..., None, :] @ k_a)[..., 0, :]
 
     gp_tl = state.gp_log_l
     m_a = gpm.gp_mean(kfn, gp_tl, x_a)
     if use_kinv:
-        k_tl = kfn(gp_tl.theta, x_a, gp_tl.x) * gp_tl.mask.to(dtype)[None, :]
-        c_a = kdiagfn(gp_tl.theta, x_a) - ((k_tl @ gp_tl.Kinv) * k_tl).sum(1)
+        k_tl = kfn(gp_tl.theta, x_a, gp_tl.x) * gp_tl.mask.to(dtype)[..., None, :]
+        c_a = kdiagfn(gp_tl.theta, x_a) - ((k_tl @ gp_tl.Kinv) * k_tl).sum(-1)
     else:
         c_a = gpm.gp_var(kfn, kdiagfn, gp_tl, x_a)
     return A, B, degenerate, zTalpha, m_a, torch.clamp(c_a, min=0.0)
 
 
 def expected_squared_mean_xla(state: BQState, opts: BQOptions, x_a) -> torch.Tensor:
-    """The plain-tensor ESM path (named after its JAX counterpart) → (na,)."""
-    x_a = as_points(x_a, opts.dim, state.x_s.dtype, state.x_s.device)
+    """The plain-tensor ESM path (named after its JAX counterpart) → (na,);
+    (B, na) for a fleet state, whose ``x_a`` may be (B, na, d)."""
+    if not (torch.is_tensor(x_a) and x_a.ndim == 3):
+        x_a = as_points(x_a, opts.dim, state.x_s.dtype, state.x_s.device)
     A, B, degenerate, zTalpha, m_a, c_a = _esm_affine_terms(state, opts, x_a)
-    E1, E2 = _lognormal_moments(m_a, c_a, state.gamma)
+    E1, E2 = _lognormal_moments(m_a, c_a, state.gamma[..., None])
     esm = A * A + 2.0 * A * B * E1 + B * B * E2
-    return torch.where(degenerate, zTalpha * zTalpha, esm)
+    return torch.where(degenerate, (zTalpha * zTalpha)[..., None], esm)
 
 
 def esm_fused_inputs(state: BQState, opts: BQOptions, x_a):
@@ -217,14 +223,17 @@ def choose_next(state: BQState, opts: BQOptions, x_a, hyper_samples=None):
 
 def add_observation(state: BQState, opts: BQOptions, x_a, l_a) -> BQState:
     """Write an observation into slot ``ns`` and refit both GPs. At capacity
-    it overwrites the last slot: callers grow ``max_obs`` first."""
+    it overwrites the last slot: callers grow ``max_obs`` first. For a fleet
+    state ``x_a`` is (B, d) and ``l_a`` (B,): one observation per problem, each
+    into its own slot, and one batched refit."""
     dtype, dev = state.x_s.dtype, state.x_s.device
-    x_a = torch.as_tensor(x_a, dtype=dtype, device=dev).reshape(state.x_s.shape[1])
-    l_a = torch.as_tensor(l_a, dtype=dtype, device=dev).reshape(())
-    slot = torch.arange(opts.max_obs, device=dev) == torch.clamp(state.ns, max=opts.max_obs - 1)
+    batch = state.ns.shape
+    x_a = torch.as_tensor(x_a, dtype=dtype, device=dev).reshape(*batch, state.x_s.shape[-1])
+    l_a = torch.as_tensor(l_a, dtype=dtype, device=dev).reshape(batch)
+    slot = torch.arange(opts.max_obs, device=dev) == torch.clamp(state.ns, max=opts.max_obs - 1)[..., None]
     st = state._replace(
-        x_s=torch.where(slot[:, None], x_a, state.x_s),
-        l_s=torch.where(slot, l_a, state.l_s),
+        x_s=torch.where(slot[..., :, None], x_a[..., None, :], state.x_s),
+        l_s=torch.where(slot, l_a[..., None], state.l_s),
         obs_mask=state.obs_mask | slot,
         ns=torch.clamp(state.ns + 1, max=opts.max_obs),
     )

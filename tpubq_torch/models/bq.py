@@ -10,8 +10,11 @@ candidates never changes a shape. The math (Osborne et al. 2012):
   3. E[Z] = α_l · int_K(x_sc).
   4. V[Z] = ∫∫ (m_l(x)+γ) C_tl(x, x') (m_l(x')+γ) p(x) p(x') dx dx'.
 
-Batching: hyperparameters may carry a leading batch axis (``marginalize``
-installs a (B, p) stack of θ_tl rows in one call); data tensors are shared.
+Batching: every function here indexes its data from the back, so a state may
+carry leading batch axes. Two layouts are in use: hyperparameters batched
+over shared data (``marginalize`` installs a (B, p) stack of θ_tl rows in one
+call), and the fleet of ``models/batched.py``, where every leaf, data and
+measure included, has a leading problem axis.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ class BQState(NamedTuple):
     count. x_c: (n_candidate, d) candidates; l_c: (n_candidate,) anchors;
     c_mask: (n_candidate,) live flags. gamma: () exp-transform constant.
     x_mean: (d,), x_var: (d, d), the gaussian measure. gp_log_l / gp_l: the
-    GP factorizations in log and linear space.
+    GP factorizations in log and linear space. A fleet state has a leading
+    problem axis on every leaf.
     """
 
     x_s: torch.Tensor
@@ -57,7 +61,7 @@ class BQState(NamedTuple):
 
     @property
     def x_sc(self) -> torch.Tensor:
-        return torch.cat([self.x_s, self.x_c], dim=0)
+        return torch.cat([self.x_s, self.x_c], dim=-2)
 
     @property
     def l_sc(self) -> torch.Tensor:
@@ -65,7 +69,7 @@ class BQState(NamedTuple):
 
     @property
     def sc_mask(self) -> torch.Tensor:
-        return torch.cat([self.obs_mask, self.c_mask], dim=0)
+        return torch.cat([self.obs_mask, self.c_mask], dim=-1)
 
 
 def _mv(M, v):
@@ -77,7 +81,7 @@ def _dot(a, b):
 
 
 def log_transform(l: torch.Tensor, gamma) -> torch.Tensor:
-    """tl = log(l/γ + 1)."""
+    """tl = log(l/γ + 1); ``gamma`` broadcasts against ``l``."""
     return torch.log1p(l / gamma)
 
 
@@ -89,18 +93,18 @@ def inv_log_transform(tl: torch.Tensor, gamma) -> torch.Tensor:
 
 
 def live_bounds(x_s, obs_mask):
-    """Per-dimension (lo, hi) of the live observations."""
+    """Per-dimension (lo, hi) of the live observations → ((..., d), (..., d))."""
     big = torch.finfo(x_s.dtype).max
-    m = obs_mask[:, None]
-    lo = torch.where(m, x_s, torch.full_like(x_s, big)).amin(0)
-    hi = torch.where(m, x_s, torch.full_like(x_s, -big)).amax(0)
+    m = obs_mask[..., :, None]
+    lo = torch.where(m, x_s, torch.full_like(x_s, big)).amin(-2)
+    hi = torch.where(m, x_s, torch.full_like(x_s, -big)).amax(-2)
     return lo, hi
 
 
 def choose_candidates(x_s, obs_mask, opts: BQOptions):
     """Candidate grid and mask: a linspace across the live range in 1-D,
     ``n_candidate`` Halton points over the live bounding box for d > 1."""
-    d = x_s.shape[1]
+    d = x_s.shape[-1]
     lo, hi = live_bounds(x_s, obs_mask)
     if d == 1:
         t = torch.linspace(0.0, 1.0, opts.n_candidate, dtype=x_s.dtype, device=x_s.device)[:, None]
@@ -109,15 +113,15 @@ def choose_candidates(x_s, obs_mask, opts: BQOptions):
 
         pts = qmc.Halton(d, scramble=False).random(opts.n_candidate + 1)[1:]
         t = torch.as_tensor(pts, dtype=x_s.dtype, device=x_s.device)
-    x_c = lo[None, :] + t * (hi - lo)[None, :]
+    x_c = lo[..., None, :] + t * (hi - lo)[..., None, :]
     return x_c, filter_candidates(x_c, x_s, obs_mask, opts.candidate_thresh)
 
 
 def filter_candidates(x_c, x_s, obs_mask, thresh):
     """Mask of candidates at least ``thresh`` (sup-norm) from every live
     observation."""
-    dist = (x_c[:, None, :] - x_s[None, :, :]).abs().amax(-1)
-    near = ((dist < thresh) & obs_mask[None, :]).any(1)
+    dist = (x_c[..., :, None, :] - x_s[..., None, :, :]).abs().amax(-1)
+    near = ((dist < thresh) & obs_mask[..., None, :]).any(-1)
     return ~near
 
 
@@ -125,18 +129,19 @@ def _fit_gps(state: BQState, opts: BQOptions, need_kinv: bool = True) -> BQState
     """(Re)build candidates, linearization anchors and both GP factors."""
     kfn, _ = get_kernel(opts.kernel)
     zero = torch.zeros_like(state.l_s)
-    tl_s = torch.where(state.obs_mask, log_transform(state.l_s, state.gamma), zero)
+    gamma = state.gamma[..., None]  # against the trailing point axis
+    tl_s = torch.where(state.obs_mask, log_transform(state.l_s, gamma), zero)
     gp_tl = gpm.gp_fit(
         kfn, state.gp_log_l.theta, state.gp_log_l.s, state.x_s, tl_s, state.obs_mask,
         base_jitter=opts.base_jitter, need_kinv=need_kinv,
     )
     x_c, c_mask = choose_candidates(state.x_s, state.obs_mask, opts)
     m_tl_c = gpm.gp_mean(kfn, gp_tl, x_c)
-    l_c = torch.where(c_mask, inv_log_transform(m_tl_c, state.gamma), torch.zeros_like(m_tl_c))
-    x_sc = torch.cat([state.x_s, x_c], dim=0)
+    l_c = torch.where(c_mask, inv_log_transform(m_tl_c, gamma), torch.zeros_like(m_tl_c))
+    x_sc = torch.cat([state.x_s, x_c], dim=-2)
     l_s = torch.where(state.obs_mask, state.l_s, zero)
     l_sc = torch.cat([l_s.expand(*l_c.shape[:-1], -1), l_c], dim=-1)
-    sc_mask = torch.cat([state.obs_mask, c_mask], dim=0)
+    sc_mask = torch.cat([state.obs_mask, c_mask], dim=-1)
     gp_l = gpm.gp_fit(
         kfn, state.gp_l.theta, state.gp_l.s, x_sc, l_sc, sc_mask,
         base_jitter=opts.base_jitter, need_kinv=need_kinv,
@@ -330,11 +335,12 @@ def _gh_rule(n_axis: int, d: int):
 def _measure_nodes(state: BQState, nodes1: np.ndarray):
     dtype, dev = state.x_s.dtype, state.x_s.device
     Lv = torch.linalg.cholesky(state.x_var)
-    return state.x_mean[None, :] + torch.as_tensor(nodes1, dtype=dtype, device=dev) @ Lv.T
+    nodes1 = torch.as_tensor(nodes1, dtype=dtype, device=dev)
+    return state.x_mean[..., None, :] + nodes1 @ Lv.transpose(-1, -2)
 
 
 def _gh_nodes(state: BQState, opts: BQOptions):
-    """Gauss–Hermite nodes/weights of N(x_mean, x_var) → ((m, d), (m,)):
+    """Gauss–Hermite nodes/weights of N(x_mean, x_var) → ((..., m, d), (m,)):
     ``n_gh`` nodes in 1-D; a tensor rule with ceil(n_gh^(1/d)) nodes per axis
     (floors 20 / 12 in 2-D / 3-D) rotated through chol(x_var) for d > 1."""
     d = opts.dim
@@ -403,8 +409,10 @@ def Z_var_exact_terms(state: BQState, opts: BQOptions):
 
     q = igr.int_K(state.x_s, h_tl, w_tl, mu, Sig) * m_s
     Q = igr.int_int_K(opts.dim, h_tl, w_tl, mu, Sig)
-    P = igr.int_K1_K2(x_sc, state.x_s, h_l, w_l, h_tl, w_tl, mu, Sig) * m_sc[:, None] * m_s[None, :]
-    T = igr.int_int_K1_K2(x_sc, x_sc, h_l, w_l, h_tl, w_tl, mu, Sig) * m_sc[:, None] * m_sc[None, :]
+    P = (igr.int_K1_K2(x_sc, state.x_s, h_l, w_l, h_tl, w_tl, mu, Sig)
+         * m_sc[..., :, None] * m_s[..., None, :])
+    T = (igr.int_int_K1_K2(x_sc, x_sc, h_l, w_l, h_tl, w_tl, mu, Sig)
+         * m_sc[..., :, None] * m_sc[..., None, :])
     U = igr.int_K1_int_K2(x_sc, h_l, w_l, h_tl, w_tl, mu, Sig) * m_sc
 
     beta = linalg.chol_solve_vec(L_tl, q)
@@ -421,7 +429,7 @@ def _z_var_quad_terms(state: BQState, opts: BQOptions, nodes, w):
     """(raw, gross) of the quadrature bilinear form V = aᵀ C_tl a with
     a_i = w_i (m_l(x_i) + γ)."""
     kfn, _ = get_kernel(opts.kernel)
-    m_l = gpm.gp_mean(kfn, state.gp_l, nodes) + state.gamma
+    m_l = gpm.gp_mean(kfn, state.gp_l, nodes) + state.gamma[..., None]
     C_tl = gpm.gp_cov(kfn, state.gp_log_l, nodes)
     a = w * m_l
     Ca = _mv(C_tl, a)

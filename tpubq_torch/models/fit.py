@@ -10,7 +10,8 @@ keeps every scale positive without constraints. Two routes:
   optax's, the optimum is held to it.
 * ``fit_params_fused``: Adam over the ``mll_grad_batched`` kernel, one kernel
   launch per iteration for all restarts, no host sync inside the loop. The
-  float32 route for the 1-D gaussian kernel.
+  float32 route for the 1-D gaussian kernel. Given a fleet's data, (P, n, 1),
+  it fits all P problems at once: still one launch per iteration.
 
 Random draws come from an explicit CPU ``torch.Generator``, so a seed gives
 the same restarts on every device.
@@ -193,11 +194,12 @@ def _objective(kfn, s, x, y, mask, jitter, free_mask=None, u_frozen=None):
 
 
 def _live_std(y, mask):
-    """Standard deviation of the live targets, floored at 1e-6."""
+    """Standard deviation of the live targets (over the last axis), floored
+    at 1e-6."""
     m = mask.to(y.dtype)
-    n_live = torch.clamp(m.sum(), min=1.0)
-    ymean = (y * m).sum() / n_live
-    return torch.sqrt(torch.clamp((m * (y - ymean) ** 2).sum() / n_live, min=1e-12))
+    n_live = torch.clamp(m.sum(-1), min=1.0)
+    ymean = (y * m).sum(-1) / n_live
+    return torch.sqrt(torch.clamp((m * (y - ymean[..., None]) ** 2).sum(-1) / n_live, min=1e-12))
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, like: torch.Tensor):
@@ -212,6 +214,8 @@ def random_restarts(gen: torch.Generator, theta0, x, y, mask, n_restart: int,
     Row 0 is log θ0 (the incumbent). The others draw log h around the scale
     of the live targets, log(ystd) + U(−2, 2), and each log w_j around that
     dimension's own live input range, log(range_j) + U(log 0.05, log 2).
+    With a leading problem axis on ``theta0``, ``x``, ``y`` and ``mask`` the
+    result is (P, n_restart, p), drawn in one call.
     """
     if kernel in ("periodic", "rq"):
         raise NotImplementedError(
@@ -220,18 +224,20 @@ def random_restarts(gen: torch.Generator, theta0, x, y, mask, n_restart: int,
         )
     theta0 = torch.as_tensor(theta0, dtype=x.dtype, device=x.device)
     big = torch.finfo(x.dtype).max
-    live = mask[:, None]
+    live = mask[..., :, None]
     xr = torch.clamp(
-        torch.where(live, x, torch.full_like(x, -big)).amax(0)
-        - torch.where(live, x, torch.full_like(x, big)).amin(0),
+        torch.where(live, x, torch.full_like(x, -big)).amax(-2)
+        - torch.where(live, x, torch.full_like(x, big)).amin(-2),
         min=1e-6,
-    )  # (d,) per-dimension live ranges
-    p = theta0.shape[0]
-    log_h = torch.log(_live_std(y, mask)) + _uniform(gen, (n_restart, 1), -2.0, 2.0, x)
-    log_w = torch.log(xr)[None, :] + _uniform(
-        gen, (n_restart, p - 1), math.log(0.05), math.log(2.0), x)
-    u = torch.cat([log_h, log_w], dim=1)
-    u[0] = torch.log(theta0)
+    )  # (..., d) per-dimension live ranges
+    p = theta0.shape[-1]
+    batch = tuple(x.shape[:-2])
+    log_h = torch.log(_live_std(y, mask))[..., None, None] + _uniform(
+        gen, (*batch, n_restart, 1), -2.0, 2.0, x)
+    log_w = torch.log(xr)[..., None, :] + _uniform(
+        gen, (*batch, n_restart, p - 1), math.log(0.05), math.log(2.0), x)
+    u = torch.cat([log_h, log_w], dim=-1)
+    u[..., 0, :] = torch.log(theta0)
     return u
 
 
@@ -374,18 +380,25 @@ def fit_params_fused(
     gradient, stepped by Adam in log space, plus one last launch to rank the
     restarts (a non-finite MLL loses). Gaussian kernel, 1-D x, float32; the
     autograd route (``fit_params``) is the general one.
+
+    A fleet: ``theta0`` (P, 2), ``s`` (P,), ``x`` (P, n, 1), ``y`` and
+    ``mask`` (P, n), ``restart_inits`` (P, R, 2) → ((P, 2), (P,)). All P·R
+    rows advance in the same launches, each on its own problem's data.
     """
     theta0 = _on(theta0, x)
     free_mask = _on(free_mask, x, torch.bool)
-    s = _on(s, x).reshape(())
+    s = _on(s, x).reshape(x.shape[:-2])
     if restart_inits is None:
         restart_inits = random_restarts(gen, theta0, x, y, mask, 10)
     us = _on(restart_inits, x)
     if free_mask is not None:
         # pin frozen coordinates: the kernel evaluates exp(us) directly
-        us = torch.where(free_mask[None, :], us, torch.log(theta0)[None, :])
-    us = _adam_ascent(us, s, x, y, mask, n_iter, lr, jitter, free_mask)
+        us = torch.where(free_mask, us, torch.log(theta0)[..., None, :])
+    shape = us.shape  # (R, 2) or (P, R, 2)
+    us = _adam_ascent(us.reshape(-1, 2), s, x, y, mask, n_iter, lr, jitter, free_mask)
     mll, _ = hk.mll_grad_batched(torch.exp(us), s, x, y, mask, jitter=jitter)
-    mll = torch.where(torch.isfinite(mll), mll, torch.full_like(mll, -math.inf))
-    best = torch.argmax(mll)
-    return _pin_frozen(torch.exp(us[best]), theta0, free_mask), mll[best]
+    mll = torch.where(torch.isfinite(mll), mll, torch.full_like(mll, -math.inf)).reshape(shape[:-1])
+    best = torch.argmax(mll, dim=-1, keepdim=True)
+    u_best = torch.take_along_dim(us.reshape(shape), best[..., None], dim=-2)[..., 0, :]
+    mll_best = torch.take_along_dim(mll, best, dim=-1)[..., 0]
+    return _pin_frozen(torch.exp(u_best), theta0, free_mask), mll_best

@@ -22,9 +22,9 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu")
+SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu", "esm_fleet_l.cu", "esm_fleet_tl.cu")
 #: Headers the sources include (hashed with them, never compiled alone).
-HEADERS = ("chol_columns.cuh",)
+HEADERS = ("chol_columns.cuh", "esm_fleet_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,7 +37,12 @@ _SIG = {
         _i,
     ),
     "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _i, _p], _i),
-    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _p, _p, _p], _i),
+    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p], _i),
+    "tpubq_esm_fleet_l": (
+        [_p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _i, _f, _f, _i, _i, _p, _p, _p, _p],
+        _i,
+    ),
+    "tpubq_esm_fleet_tl": ([_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p, _p], _i),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels and their plain PyTorch twins.
 
-Three kernels, each the port of a TPU Pallas kernel of the JAX package:
+Five kernels, each the port of a TPU Pallas kernel of the JAX package:
 
 * ``esm_fused`` (``csrc/esm_fused.cu``) ← ``tpubq/ops/pallas_kernels.py``
   ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``.
@@ -8,13 +8,19 @@ Three kernels, each the port of a TPU Pallas kernel of the JAX package:
   batched float32 Cholesky behind ``marginalize``.
 * ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
   masked log marginal likelihood and its (h, w) gradient for a batch of
-  hyperparameter rows, behind the fused multi-restart fit.
+  hyperparameter rows, behind the fused multi-restart fit; the rows may
+  belong to several problems, each with its own data.
+* ``esm_fleet_l`` (``csrc/esm_fleet_l.cu``) ← ``esm_fleet_l`` and
+  ``esm_fleet_tl`` (``csrc/esm_fleet_tl.cu``) ← ``esm_fleet_tl``: the two
+  halves of the fleet scorer behind ``BQFleet.choose_next``, B problems × G
+  shared grid points per launch.
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel
 launches in a plain integer attribute (``esm_fused.launches``,
-``chol_batch.launches``, ``mll_grad_batched.launches``), incremented where the kernel is launched and
-nowhere else. Nothing here imports a CUDA toolchain at import time: the
+``chol_batch.launches``, ``mll_grad_batched.launches``,
+``esm_fleet_l.launches``, ``esm_fleet_tl.launches``), incremented where the
+kernel is launched and nowhere else. Nothing here imports a CUDA toolchain at import time: the
 library is built by ``_build`` on the first launch.
 """
 
@@ -35,6 +41,13 @@ __all__ = [
     "mll_grad_batched",
     "mll_grad_batched_plain",
     "mll_grad_supported",
+    "FLEET_PARAMS",
+    "esm_fleet_l",
+    "esm_fleet_l_plain",
+    "esm_fleet_l_supported",
+    "esm_fleet_tl",
+    "esm_fleet_tl_plain",
+    "esm_fleet_tl_supported",
 ]
 
 #: Shared memory one block may use on H100 (227 KB).
@@ -298,17 +311,26 @@ def mll_grad_batched_plain(thetas, s, x, y, mask, jitter: float = 1e-10):
     ∂MLL/∂θ = −½ Σ (K⁻¹ − ααᵀ) ∘ ∂K/∂θ. The oracle of the kernel and its CPU
     path."""
     dtype, dev = x.dtype, x.device
-    n = x.shape[0]
+    n = x.shape[-2]
+    per_problem = x.ndim == 3
+    reps = thetas.shape[0] // x.shape[0] if per_problem else 1
+
+    def rows(t):
+        """Per-problem values (P, ...) → one per theta row (B, ...); shared
+        values gain a broadcast row axis."""
+        return t.repeat_interleave(reps, 0) if per_problem else t[None]
+
     h, w = thetas[:, 0], thetas[:, 1]
-    m = mask.to(dtype)
-    ym = torch.where(mask, y, torch.zeros_like(y))
+    m = rows(mask.to(dtype))  # (B or 1, n)
+    ym = rows(torch.where(mask, y, torch.zeros_like(y)))
     s = torch.as_tensor(s, dtype=dtype, device=dev)
+    s2 = rows(s * s)[:, None, None] if s.ndim else s * s
     eye = torch.eye(n, dtype=dtype, device=dev)
-    diff = (x - x.T)[None] / w[:, None, None]  # (B, n, n)
+    diff = rows(x - x.transpose(-1, -2)) / w[:, None, None]  # (B, n, n)
     r2 = diff * diff
     h2 = (h * h)[:, None, None]
-    K0 = h2 * torch.exp(-0.5 * r2) * (m[:, None] * m[None, :])
-    K = K0 + eye * (1.0 - m) + eye * (s * s + jitter * h2) * m
+    K0 = h2 * torch.exp(-0.5 * r2) * (m[:, :, None] * m[:, None, :])
+    K = K0 + eye * (1.0 - m)[:, None, :] + eye * (s2 + jitter * h2) * m[:, None, :]
 
     L = _chol_columns_plain(K, clamp_pivot=True)
     Y = torch.zeros_like(K)
@@ -316,14 +338,14 @@ def mll_grad_batched_plain(thetas, s, x, y, mask, jitter: float = 1e-10):
         contrib = (L[:, j, :j, None] * Y[:, :j, :]).sum(1)  # L[j, :j] @ Y[:j, :]
         Y[:, j, :] = (eye[j] - contrib) / L[:, j, j, None]
     Kinv = Y.transpose(1, 2) @ Y
-    alpha = (Kinv @ ym[:, None])[..., 0]  # (B, n)
+    alpha = (Kinv @ (ym[..., None] if per_problem else ym[0][:, None]))[..., 0]  # (B, n)
     quad = (ym * alpha).sum(-1)
     diagL = torch.diagonal(L, dim1=-2, dim2=-1)
-    logdet = 2.0 * torch.log(torch.where(mask, diagL, torch.ones_like(diagL))).sum(-1)
-    mll = -0.5 * (quad + logdet + m.sum() * _LOG2PI)
+    logdet = 2.0 * torch.log(torch.where(m > 0, diagL, torch.ones_like(diagL))).sum(-1)
+    mll = -0.5 * (quad + logdet + m.sum(-1) * _LOG2PI)
 
     G = Kinv - alpha[:, :, None] * alpha[:, None, :]
-    dKdh = (2.0 / h)[:, None, None] * K0 + eye * (2.0 * jitter * h)[:, None, None] * m
+    dKdh = (2.0 / h)[:, None, None] * K0 + eye * (2.0 * jitter * h)[:, None, None] * m[:, None, :]
     dKdw = K0 * r2 / w[:, None, None]
     grad = torch.stack([-0.5 * (G * dKdh).sum((-1, -2)), -0.5 * (G * dKdw).sum((-1, -2))], dim=-1)
     return mll, grad
@@ -340,19 +362,32 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     Cholesky is clamped, so a row whose Gram is not positive definite comes
     back huge or non-finite and the caller filters it. A tensor ``s`` on the
     device costs no host sync.
+
+    Per-problem data: ``x`` (P, n, 1), ``y`` and ``mask`` (P, n), ``s`` a
+    scalar or (P,), with B a multiple of P: row r is evaluated on the data of
+    problem r // (B / P), all in the same launch. With shared data the kernel
+    reads exactly what it read before this form existed.
     """
     if thetas.ndim != 2 or thetas.shape[1] != 2:
         raise ValueError(f"mll_grad_batched: thetas must be (B, 2), got {tuple(thetas.shape)}")
-    if x.ndim != 2 or x.shape[1] != 1:
-        raise ValueError(f"mll_grad_batched: x must be (n, 1), got {tuple(x.shape)}")
-    B, n = thetas.shape[0], x.shape[0]
+    if x.ndim not in (2, 3) or x.shape[-1] != 1:
+        raise ValueError(f"mll_grad_batched: x must be (n, 1) or (P, n, 1), got {tuple(x.shape)}")
+    B, n = thetas.shape[0], x.shape[-2]
+    data_shape = tuple(x.shape[:-1])  # (n,) or (P, n)
+    P = x.shape[0] if x.ndim == 3 else 1
+    if x.ndim == 3 and (P == 0 or B % P):
+        raise ValueError(f"mll_grad_batched: {B} theta rows do not divide over {P} problems")
     for k, t in (("y", y), ("mask", mask)):
-        if tuple(t.shape) != (n,):
-            raise ValueError(f"mll_grad_batched: {k} has shape {tuple(t.shape)}, expected {(n,)}")
+        if tuple(t.shape) != data_shape:
+            raise ValueError(f"mll_grad_batched: {k} has shape {tuple(t.shape)}, expected {data_shape}")
     if mask.dtype != torch.bool or mask.device != x.device or not mask.is_contiguous():
         raise ValueError("mll_grad_batched: mask must be a contiguous bool tensor on x's device")
-    s = torch.as_tensor(s, dtype=torch.float32, device=x.device).reshape(())
-    _check_f32("mll_grad_batched", x.device, thetas=thetas, x=x, y=y)
+    s = torch.as_tensor(s, dtype=torch.float32, device=x.device)
+    if s.numel() == 1:
+        s = s.reshape(())
+    elif x.ndim != 3 or tuple(s.shape) != (P,):
+        raise ValueError(f"mll_grad_batched: s must be a scalar or (P,), got {tuple(s.shape)}")
+    _check_f32("mll_grad_batched", x.device, thetas=thetas, x=x, y=y, s=s)
     if x.device.type == "cpu":
         return mll_grad_batched_plain(thetas, s, x, y, mask, jitter)
     if x.device.type != "cuda":
@@ -369,8 +404,8 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     with torch.cuda.device(x.device):
         err = lib.tpubq_mll_grad(
             thetas.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
-            float(jitter), B, n, _MLL_THREADS, _mll_smem_bytes(n), mll.data_ptr(),
-            grad.data_ptr(), _stream_ptr(x),
+            float(jitter), B, n, B // P, n if x.ndim == 3 else 0, 1 if s.ndim else 0,
+            _MLL_THREADS, _mll_smem_bytes(n), mll.data_ptr(), grad.data_ptr(), _stream_ptr(x),
         )
         mll_grad_batched.launches += 1
     _check(err, "mll_grad_batched")
@@ -378,3 +413,218 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
 
 
 mll_grad_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# esm_fleet_l / esm_fleet_tl
+# ---------------------------------------------------------------------------
+
+#: Scalars per problem of ``esm_fleet_l``: [0] κ, [1] zᵀα, [2] ζ scale,
+#: [3:6] μ, [6:6+d²] ½(W_l+Σ)⁻¹ row-major, [15] h_l² (the TPU kernel's (P, 16)
+#: block with its spare slot used for h_l²).
+FLEET_PARAMS = 16
+_FLEET_THREADS = (128, 64, 32)
+#: Elements of a (B, NP, tile) intermediate the plain versions allow themselves.
+_PLAIN_TILE_ELEMS = 1 << 23
+
+
+def _fleet_launch_config(NP: int, d: int):
+    """(threads, smem_bytes) of a fleet scorer launch, or None. Shared memory
+    holds one problem: K⁻¹ with its rows padded to a multiple of four floats
+    (the kernels read it as float4), the k buffer of every thread, and the
+    problem's vectors and scalars."""
+    nps = (NP + 3) // 4 * 4
+    for t in _FLEET_THREADS:
+        floats = nps * nps + nps * t + NP * (d + 3) + FLEET_PARAMS + d
+        if 4 * floats <= SMEM_LIMIT:
+            return t, 4 * floats
+    return None
+
+
+def esm_fleet_l_supported(NP: int, d: int) -> bool:
+    """Whether ``esm_fleet_l`` covers NP rows per problem: d ≤ 3 and one
+    problem's K⁻¹ plus 32 k buffers within 227 KB of shared memory, NP ≤ 220."""
+    return 1 <= d <= 3 and NP >= 1 and _fleet_launch_config(NP, d) is not None
+
+
+def esm_fleet_tl_supported(NP2: int, d: int) -> bool:
+    """Whether ``esm_fleet_tl`` covers NP2 rows per problem (as ``esm_fleet_l``)."""
+    return esm_fleet_l_supported(NP2, d)
+
+
+def _grid_tiles(G: int, B: int, NP: int):
+    step = max(1, _PLAIN_TILE_ELEMS // max(1, B * NP))
+    return [(g0, min(G, g0 + step)) for g0 in range(0, G, step)]
+
+
+def _fleet_cross_kernel(h2, w2inv, g, x, m):
+    """(k (B, NP, T), r² (B, NP, T), x − g (B, NP, T, d)) of one grid tile."""
+    diff = x[:, :, None, :] - g[None, None, :, :]
+    r2 = torch.zeros(diff.shape[:3], dtype=g.dtype, device=g.device)
+    for j in range(x.shape[-1]):
+        r2 = r2 + diff[..., j] * diff[..., j] * w2inv[:, j][:, None, None]
+    return h2[:, None, None] * torch.exp(-r2) * m[:, :, None], r2, diff
+
+
+def esm_fleet_l_plain(params, w2inv, grid, xsc, msc, Kinv, uz, alpha, thresh: float, lam: float):
+    """The linear-GP half of the fleet scorer in batched tensor ops (same
+    arguments as ``esm_fleet_l``, any float dtype), one tile of the grid at a
+    time: the oracle of the kernel and its CPU path."""
+    B, NP, d = xsc.shape
+    kappa, zTa, zc, h2 = (params[:, i][:, None] for i in (0, 1, 2, 15))
+    mu = params[:, 3:3 + d]
+    Ah = params[:, 6:6 + d * d].reshape(B, d, d)
+    eps = torch.finfo(grid.dtype).eps
+    thresh = grid.new_tensor(thresh)  # squared in the working dtype, as the kernel does
+    Kabs = Kinv.abs()
+    outs = []
+    for g0, g1 in _grid_tiles(grid.shape[0], B, NP):
+        g = grid[g0:g1]
+        k, r2, diff = _fleet_cross_kernel(h2[:, 0], w2inv, g, xsc, msc)
+        if d == 1:  # |x − g| < thresh  ⇔  r² < thresh²·(½/w²): the test reuses r²
+            near_rows = r2 < (thresh * thresh) * w2inv[:, 0][:, None, None]
+        else:
+            near_rows = diff.abs().amax(-1) < thresh
+        near = (near_rows & (msc[:, :, None] > 0)).any(1)
+        s1 = (k * (Kinv @ k)).sum(1)
+        bound = (k * (Kabs @ k)).sum(1)
+        zv = (uz[:, :, None] * k).sum(1)
+        ka = (alpha[:, :, None] * k).sum(1)
+        gam = kappa - s1
+        degen = near | (gam <= torch.maximum(eps * kappa, lam * bound))
+        da = g[None, :, :] - mu[:, None, :]  # (B, T, d)
+        q = torch.zeros(da.shape[:2], dtype=g.dtype, device=g.device)
+        for i in range(d):
+            for j in range(d):
+                q = q + Ah[:, i, j][:, None] * da[..., i] * da[..., j]
+        zeta = zc * torch.exp(-q)
+        Bc = (zeta - zv) / torch.where(degen, torch.ones_like(gam), gam)
+        outs.append((zTa - Bc * ka, Bc, degen.to(grid.dtype)))
+    if not outs:
+        empty = grid.new_empty((B, 0))
+        return empty, empty.clone(), empty.clone()
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def esm_fleet_tl_plain(h2, w2inv, grid, xs, ms, Kinv, alpha):
+    """The log-GP half of the fleet scorer in batched tensor ops (same
+    arguments as ``esm_fleet_tl``, any float dtype): the oracle of the kernel
+    and its CPU path."""
+    B, NP2, _ = xs.shape
+    outs = []
+    for g0, g1 in _grid_tiles(grid.shape[0], B, NP2):
+        k, _, _ = _fleet_cross_kernel(h2, w2inv, grid[g0:g1], xs, ms)
+        quad = (k * (Kinv @ k)).sum(1)
+        outs.append(((alpha[:, :, None] * k).sum(1), torch.clamp(h2[:, None] - quad, min=0.0)))
+    if not outs:
+        empty = grid.new_empty((B, 0))
+        return empty, empty.clone()
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def _check_fleet(name: str, grid, rows: dict, B: int, NP: int, d: int):
+    """Shapes, dtype, device and contiguity of a fleet scorer's tensors."""
+    if not 1 <= d <= 3:
+        raise ValueError(f"{name} supports d <= 3, got d={d}")
+    if grid.ndim != 2 or grid.shape[1] != d:
+        raise ValueError(f"{name}: grid must be (G, {d}), the problems' dim; got {tuple(grid.shape)}")
+    for k, (t, want) in rows.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {k} has shape {tuple(t.shape)}, expected {want}")
+    _check_f32(name, grid.device, grid=grid, **{k: t for k, (t, _) in rows.items()})
+    if grid.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {grid.device}")
+    if grid.device.type == "cuda" and _fleet_launch_config(NP, d) is None:
+        raise ValueError(
+            f"{name}: {NP} rows per problem exceed the shared-memory budget "
+            f"(see {name}_supported)"
+        )
+    if B > 65535:
+        raise ValueError(f"{name}: at most 65535 problems per launch, got {B}")
+
+
+def esm_fleet_l(params, w2inv, grid, xsc, msc, Kinv, uz, alpha, thresh: float, lam: float):
+    """Linear-GP half of the fleet ESM: for B problems × G shared grid points
+    the affine coefficients and the degenerate mask → (A, B, degen), each
+    (B, G) (degen as 0/1 floats).
+
+    Per (problem, point): k = h²·exp(−r²)·m; s1 = kᵀK⁻¹k; bound = kᵀ|K⁻¹|k;
+    γ = κ − s1; degen = near ∨ γ ≤ max(eps·κ, λ·bound), near meaning within
+    ``thresh`` (sup-norm) of a live row; B = (ζ − uzᵀk)/γ (γ → 1 where
+    degenerate); A = zᵀα − B·αᵀk. Shapes: ``params`` (B, FLEET_PARAMS);
+    ``w2inv`` (B, d) = ½/w_l²; ``grid`` (G, d); ``xsc`` (B, NP, d);
+    ``msc``/``uz``/``alpha`` (B, NP); ``Kinv`` (B, NP, NP); float32,
+    contiguous, one device, ``esm_fleet_l_supported(NP, d)``. ``thresh`` and
+    ``lam`` are Python floats. A problem with non-finite inputs gets
+    non-finite values in its own row only.
+    """
+    if xsc.ndim != 3:
+        raise ValueError(f"esm_fleet_l: xsc must be (B, NP, d), got {tuple(xsc.shape)}")
+    B, NP, d = xsc.shape
+    G = grid.shape[0]
+    rows = {"params": (params, (B, FLEET_PARAMS)), "w2inv": (w2inv, (B, d)), "xsc": (xsc, (B, NP, d)),
+            "msc": (msc, (B, NP)), "Kinv": (Kinv, (B, NP, NP)), "uz": (uz, (B, NP)),
+            "alpha": (alpha, (B, NP))}
+    _check_fleet("esm_fleet_l", grid, rows, B, NP, d)
+    if grid.device.type == "cpu":
+        return esm_fleet_l_plain(params, w2inv, grid, xsc, msc, Kinv, uz, alpha, thresh, lam)
+    A, Bc, dg = (torch.empty((B, G), dtype=torch.float32, device=grid.device) for _ in range(3))
+    if B == 0 or G == 0:
+        return A, Bc, dg
+    from tpubq_torch.ops import _build
+
+    lib = _build.library()
+    threads, smem = _fleet_launch_config(NP, d)
+    with torch.cuda.device(grid.device):
+        err = lib.tpubq_esm_fleet_l(
+            params.data_ptr(), w2inv.data_ptr(), grid.data_ptr(), G, d, xsc.data_ptr(),
+            msc.data_ptr(), Kinv.data_ptr(), uz.data_ptr(), alpha.data_ptr(), B, NP,
+            float(thresh), float(lam), threads, smem, A.data_ptr(), Bc.data_ptr(), dg.data_ptr(),
+            _stream_ptr(grid),
+        )
+        esm_fleet_l.launches += 1
+    _check(err, "esm_fleet_l")
+    return A, Bc, dg
+
+
+esm_fleet_l.launches = 0
+
+
+def esm_fleet_tl(h2, w2inv, grid, xs, ms, Kinv, alpha):
+    """Log-GP half of the fleet ESM: the posterior mean and variance of the
+    log-GP for B problems × G shared grid points → (m_a, c_a), each (B, G).
+
+    Per (problem, point): k = h²·exp(−r²)·m; m_a = αᵀk;
+    c_a = max(h² − kᵀK⁻¹k, 0). Shapes: ``h2`` (B,) = h_tl²; ``w2inv`` (B, d) =
+    ½/w_tl²; ``grid`` (G, d); ``xs`` (B, NP2, d); ``ms``/``alpha`` (B, NP2);
+    ``Kinv`` (B, NP2, NP2); float32, contiguous, one device,
+    ``esm_fleet_tl_supported(NP2, d)``.
+    """
+    if xs.ndim != 3:
+        raise ValueError(f"esm_fleet_tl: xs must be (B, NP2, d), got {tuple(xs.shape)}")
+    B, NP2, d = xs.shape
+    G = grid.shape[0]
+    rows = {"h2": (h2, (B,)), "w2inv": (w2inv, (B, d)), "xs": (xs, (B, NP2, d)), "ms": (ms, (B, NP2)),
+            "Kinv": (Kinv, (B, NP2, NP2)), "alpha": (alpha, (B, NP2))}
+    _check_fleet("esm_fleet_tl", grid, rows, B, NP2, d)
+    if grid.device.type == "cpu":
+        return esm_fleet_tl_plain(h2, w2inv, grid, xs, ms, Kinv, alpha)
+    m_a, c_a = (torch.empty((B, G), dtype=torch.float32, device=grid.device) for _ in range(2))
+    if B == 0 or G == 0:
+        return m_a, c_a
+    from tpubq_torch.ops import _build
+
+    lib = _build.library()
+    threads, smem = _fleet_launch_config(NP2, d)
+    with torch.cuda.device(grid.device):
+        err = lib.tpubq_esm_fleet_tl(
+            h2.data_ptr(), w2inv.data_ptr(), grid.data_ptr(), G, d, xs.data_ptr(), ms.data_ptr(),
+            Kinv.data_ptr(), alpha.data_ptr(), B, NP2, threads, smem, m_a.data_ptr(),
+            c_a.data_ptr(), _stream_ptr(grid),
+        )
+        esm_fleet_tl.launches += 1
+    _check(err, "esm_fleet_tl")
+    return m_a, c_a
+
+
+esm_fleet_tl.launches = 0

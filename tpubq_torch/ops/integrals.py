@@ -5,9 +5,10 @@ docstring states the identity). The kernel with parameters (h, w) is a scaled
 gaussian density, k(a, b) = c · N(a | b, W), W = diag(w²),
 c = h² (2π)^{d/2} |W|^{1/2}; the measure is p(x) = N(x | mu, Sigma).
 
-Shapes: points ``x`` (..., n, d); ``h`` (...); ``w`` (..., d); ``mu`` (d,);
-``Sigma`` (d, d). Leading batch axes of the hypers and the points broadcast
-(marginalize passes (B,) hypers against shared points).
+Shapes: points ``x`` (..., n, d); ``h`` (...); ``w`` (..., d); ``mu`` (..., d);
+``Sigma`` (..., d, d). Leading batch axes broadcast (marginalize passes (B,)
+hypers against shared points and one measure; a fleet gives every argument a
+problem axis).
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def int_int_K(d, h, w, mu, Sigma):
     del d
     _check_w(Sigma, w)
     zero = torch.zeros_like(mu)
-    lp = gauss_logpdf(zero[None, :], zero, _W(w) + 2.0 * Sigma)[..., 0]
+    lp = gauss_logpdf(zero[..., None, :], zero, _W(w) + 2.0 * Sigma)[..., 0]
     return _scale(h, w) * torch.exp(lp)
 
 
@@ -135,7 +136,7 @@ def int_K1_int_K2(x1, h1, w1, h2, w2, mu, Sigma):
     B = W2 + Sigma
     S3 = B @ torch.linalg.solve(W2 + 2.0 * Sigma, Sigma.expand_as(B))
     zero = torch.zeros_like(mu)
-    l0 = gauss_logpdf(zero[None, :], zero, W2 + 2.0 * Sigma)
+    l0 = gauss_logpdf(zero[..., None, :], zero, W2 + 2.0 * Sigma)
     la = gauss_logpdf(x1, mu, W1 + S3)
     c = _scale(h1, w1) * _scale(h2, w2)
     return c[..., None] * torch.exp(l0 + la)

@@ -4,7 +4,9 @@
 flattened to numpy arrays under the checkpoint field names of
 ``tpubq/utils/io.py`` (``x_s``, ``gp_l.L``, ``gp_log_l.alpha``, …); ``Kinv``
 is recomputed from ``L`` where the flat dict lacks it, as the JAX loader
-does. ``load_tpubq_npz`` reads either checkpoint the JAX package writes.
+does. Leaves keep their leading axes, so a fleet's batched state carries
+across as a batched state. ``load_tpubq_npz`` reads either checkpoint the JAX
+package writes, of one problem or of a fleet.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def state_from_numpy(flat: dict, opts: BQOptions, device="cuda", dtype=None) -> 
         fields = {f: t(f"{prefix}.{f}", f) for f in GPState._fields
                   if f"{prefix}.{f}" in flat}
         if "ok" not in fields:
-            fields["ok"] = torch.tensor(True, device=dev)
+            fields["ok"] = torch.ones(fields["L"].shape[:-2], dtype=torch.bool, device=dev)
         if "Kinv" not in fields:
             L = fields["L"]
             eye = torch.eye(L.shape[-1], dtype=L.dtype, device=dev)

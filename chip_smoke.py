@@ -10,12 +10,16 @@ before the final line):
 
 0. device   — require CUDA; print the card's name and power limit
               (nvidia-smi); require full-float32 matmuls (no TF32).
-1. build    — compile the five hand-written kernels from tpubq_torch/csrc
-              with nvcc for sm_90a; print the build seconds and ptxas' report.
+1. build    — compile the hand-written kernels (one nvcc per source in
+              tpubq_torch/csrc, all at once) for sm_90a; print the build
+              seconds and ptxas' report.
 2. kernels  — each kernel against its plain PyTorch twin on the card, at the
               main paths' shapes and the ones around them, with stated
               tolerances; the fleet scorer and the plain batched float32
-              scorer against float64 at 28, 60 and 126 rows per problem.
+              scorer against float64 at 28, 60 and 126 rows per problem; the
+              large-N kernels (gaussian_gram, cholesky_blocked,
+              tri_solve_blocked, cholesky_batched) at n = 44, 128, 300 and
+              1036, NaN confinement included.
 3. main     — the f32 BQ path through the BQ facade on the card: init →
               fit_hypers (10 restarts × 150 Adam steps over the mll_grad
               kernel, both GPs) → Z moments → 10 × (choose_next over 10,000
@@ -31,13 +35,22 @@ before the final line):
               problems, against single BQs on the card; esm_fleet_l and
               esm_fleet_tl must launch exactly once per choose_next, esm_fused
               never, mll_grad exactly 2·(n_iter + 1) times for the whole fleet.
-5. s = 0    — printed, not gated: how many active steps the float32 log-GP
+5. large N  — the large-max_obs path (benchmarks/large_n.py's recipe) at
+              max_obs 128, 256, 512 and 1024: init_state → Z moments →
+              run_active_loop (8 steps, incremental False, True, "auto") →
+              marginalize(100 θ_tl rows), plus one refit, one fast and one
+              refresh step; exact launch counts per step kind; each loop held
+              to the port's float64 CPU path on its own picks, "auto" to the
+              mode it resolves to. Then which scorer each state size takes
+              (max_obs 32, 1024, 2048), card against CPU.
+6. s = 0    — printed, not gated: how many active steps the float32 log-GP
               Gram survives at s = 0 before rung 0 of the jitter ladder fails,
               with fixed hypers, after one fit, and with a refit every step.
-6. timing   — CUDA-event times of each kernel, its plain twin and the library
+7. timing   — CUDA-event times of each kernel, its plain twin and the library
               call or nearest plain route beside it, and host-clock times of
               fit_hypers, add_observation, marginalize and the fleet's calls
-              at B = 1, 8 and 64.
+              at B = 1, 8 and 64; the refit / incremental sweep (ms per step at
+              max_obs 64 … 1024) that INCREMENTAL_AUTO_WINDOW is read from.
 
 Then the kernel summary line, the nvidia-smi line, and the final
 {"ok": true, ...} line. Imports nothing from JAX or the JAX package.
@@ -505,7 +518,7 @@ def check_mll(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def pick_gap(bq, bq64, x_card: float, grid_dev, grid64):
+def pick_gap(st, opts, st64, opts64, x_card: float, grid_dev, grid64):
     """(gap, f32 error, resolved points) of the card's pick against the
     float64 ESM; (None, None, 0) where the f32 scorer resolves no point (every
     admissible point demoted: all scores tie at the plateau, and the pick is
@@ -525,11 +538,9 @@ def pick_gap(bq, bq64, x_card: float, grid_dev, grid64):
     from tpubq_torch.ops import hopper_kernels as hk
 
     xa = grid_dev[:, None]
-    st, opts = bq.state, bq.options
     esm32 = hk.esm_fused_plain(*acquire.esm_fused_inputs(st, opts, xa)).double().cpu()
     _, _, deg32, *_ = acquire._esm_affine_terms(st, opts, xa)
-    st64 = bq64.state
-    esm64 = acquire.expected_squared_mean(st64, bq64.options, grid64[:, None])
+    esm64 = acquire.expected_squared_mean(st64, opts64, grid64[:, None])
     dist = (grid64[:, None] - st64.x_s[None, :, 0]).abs()
     near = ((dist < opts.candidate_thresh) & st64.obs_mask[None, :]).any(1)
     ok = ~deg32.cpu() & ~near
@@ -605,7 +616,7 @@ def main_path(dev) -> dict:
     for _ in range(10):
         states.append(bq.state)
         xn = bq.choose_next(grid)
-        gap, err, n_ok = pick_gap(bq, bq64, xn, grid_dev, grid64)
+        gap, err, n_ok = pick_gap(bq.state, bq.options, bq64.state, bq64.options, xn, grid_dev, grid64)
         gaps.append(gap)
         errs.append(err)
         resolved.append(n_ok)
@@ -1130,7 +1141,499 @@ def fleet_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the s = 0 observation (printed, not gated)
+# the large-max_obs path: gaussian_gram, cholesky_blocked, tri_solve_blocked,
+# cholesky_batched
+# ---------------------------------------------------------------------------
+
+# The JAX package's large-N recipe (benchmarks/large_n.py::bench_active_loop):
+# max_obs − 12 sorted uniform(−2.2, 2.2) observations from RandomState(0),
+# ℓ(x) = N(x; 0.2, 0.25) + 1e-3, 12 candidates at threshold 1e-3, a
+# 512-point grid on [−4, 4], 8 active steps. Full width is max_obs = 1024
+# (the log-GP 1,024 rows, the linear GP 1,036); 128 keeps chol_batch under
+# marginalize, 256 and above put cholesky_batched there.
+LARGE_MAX_OBS = (128, 256, 512, 1024)
+LARGE_STEPS, LARGE_G, LARGE_MARG_N = 8, 512, 100
+# Observation noise of the large-N path. The points lie 0.004 apart at
+# max_obs 1024, so λ_min of either Gram is about s²: at s = 0.05 the live
+# Grams' condition numbers are ~8e4 (log-GP) and ~8e3 (linear GP) in float64
+# (printed per max_obs), rung 0 of the float32 ladder holds, and a new
+# point's Schur complement (≥ s²) clears the incremental path's √eps32·κ
+# guard. At s = 0.02 the log-GP Gram reaches κ ≈ 5e5.
+S_LARGE = 0.05
+LARGE_F64_MARG = 25  # θ_tl rows of the 100 held to float64 at max_obs 1024 (the f64 batch is 100 × 1024²)
+# Large-N path, f32 card vs f64 CPU on the same data and picks (E[Z] moves
+# by ~3e-7 and V[Z] by ~3e-5 in float32 at s = 0.05 on the initial state):
+LARGE_ZMEAN_RTOL, LARGE_ZVAR_RTOL, LARGE_MARG_RTOL = 1e-4, 5e-2, 1e-3
+# Incremental against refit on the card, where the two loops make the same picks:
+# E[Z] within 1e-5 and V[Z] within 1e-3 per step (two float32 routes to one
+# state; each also held to float64 on its own picks at the LARGE_* tolerances).
+INC_ZMEAN_RTOL, INC_ZVAR_RTOL = 1e-5, 1e-3
+LARGE_SWEEP = (64, 96, 128, 192, 256, 512, 1024)  # refit / incremental crossover
+LARGE_KERNEL_NS = (44, 128, 300, 1036)
+# Timing shapes at max_obs 1024: the linear GP's n and the log-GP's; the
+# marginalize rung stacks (2 × 100 θ_tl rows) at max_obs 256 and 1024.
+LARGE_TIMING_N = (1036, 1024)
+LARGE_TIMING_BATCHED = ((200, 256), (200, 1024))
+GRAM_TOL = 1e-6  # max|Δ| / h²: expf against torch.exp, a few float32 ulps
+
+
+def large_data(max_obs: int):
+    rng = np.random.RandomState(0)
+    x = np.sort(rng.uniform(-2.2, 2.2, max_obs - 12))
+    return x, large_lik(x)
+
+
+def large_lik(x):
+    x = np.asarray(x, np.float64)
+    return np.exp(-0.5 * (x - 0.2) ** 2 / 0.25) / math.sqrt(2.0 * math.pi * 0.25) + 1e-3
+
+
+def large_state(dev, max_obs: int, dtype: str):
+    from tpubq_torch.models import bq as bqm
+    from tpubq_torch.utils.options import BQOptions
+
+    x, l = large_data(max_obs)
+    opts = BQOptions(n_candidate=12, candidate_thresh=1e-3, max_obs=max_obs, dtype=dtype)
+    st = bqm.init_state(x, l, opts, params_tl=PARAMS_TL, params_l=PARAMS_L, s_tl=S_LARGE, s_l=S_LARGE, device=dev)
+    return st, opts
+
+
+def large_loglik(x):
+    """ℓ at a (d,) tensor, on its device (what run_active_loop calls)."""
+    import torch
+
+    return torch.exp(-0.5 * (x[0] - 0.2) ** 2 / 0.25) / math.sqrt(2.0 * math.pi * 0.25) + 1e-3
+
+
+def path_gram(rng, n: int, dev, s: float = S_LARGE):
+    """The large-N log-GP Gram of n recipe points plus s² on the diagonal."""
+    import torch
+
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    x = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=dev)
+    return hk.gaussian_gram_plain(torch.tensor(PARAMS_TL, device=dev), x, x) + s * s * torch.eye(n, device=dev)
+
+
+def live_conditions(st64) -> dict:
+    """Condition numbers, in float64, of both GPs' live Grams (s² and the
+    rung-0 jitter on the diagonal)."""
+    import torch
+
+    from tpubq_torch.ops import kernels
+
+    out = {}
+    for name, gp in (("log_gp", st64.gp_log_l), ("linear_gp", st64.gp_l)):
+        x = gp.x[gp.mask]
+        K = kernels.gaussian_K(gp.theta, x, x) + (gp.s**2 + gp.jitter) * torch.eye(x.shape[0], dtype=torch.float64)
+        ev = torch.linalg.eigvalsh(K)
+        out[name] = float(ev[-1] / ev[0])
+    return out
+
+
+def check_large_kernels(dev) -> dict:
+    """The four kernels of the large-N path against their plain versions at
+    n ∈ {44, 128, 300, 1036} (one and several 128-row panels, a ragged last
+    one), on Grams of the path's recipe at s = S_LARGE (κ up to ~1e5):
+
+    * gaussian_gram: (n, n) and (n, 1) at d = 1, (300, 512) at d = 3:
+      max|Δ| ≤ GRAM_TOL·h²;
+    * cholesky_blocked and cholesky_batched: backward error
+      max|LLᵀ − A| / max|A| ≤ n·eps32, and within CHOL_NORM_TOL of the plain
+      recursion normwise or twice the library's own distance to it where that
+      is larger (two float32 factorizations of a κ ~ 1e5 matrix); a matrix
+      made indefinite comes back NaN, in its own entry of a stack only;
+    * tri_solve_blocked: (n, 1) and (n, n) = L⁻¹ against float64, within
+      max(1e-4, 2 × the library's own distance) normwise.
+    """
+    import torch
+
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    rng = np.random.RandomState(5)
+    eps = torch.finfo(torch.float32).eps
+    norm = lambda a, b: float((a.double() - b.double()).abs().max() / b.double().abs().max())  # noqa: E731
+    gram, chol, tri, batched = [], [], [], []
+    for n in LARGE_KERNEL_NS:
+        x = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=dev)
+        th = torch.tensor(PARAMS_TL, device=dev)
+        for x2 in (x, x[n // 2:n // 2 + 1].contiguous()):
+            K = hk.gaussian_gram(th, x, x2)
+            torch.cuda.synchronize()
+            gram.append(dict(shape=[n, x2.shape[0], 1], max_abs_err=float((K - hk.gaussian_gram_plain(th, x, x2)).abs().max())))
+        A = path_gram(rng, n, dev)
+        L = hk.cholesky_blocked(A)
+        torch.cuda.synchronize()
+        ref, lib = hk.cholesky_blocked_plain(A), torch.linalg.cholesky(A)
+        L64 = L.double()
+        chol.append(dict(n=n, finite=bool(torch.isfinite(L).all()), upper_zero=bool((torch.triu(L, 1) == 0).all()),
+                         backward_err=norm(L64 @ L64.T, A), norm_err=norm(L, ref), library_norm_err=norm(lib, ref),
+                         max_abs_err=float((L - ref).abs().max()), tol_backward=n * eps))
+        for M in (1, n):
+            R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
+            X = hk.tri_solve_blocked(ref, R)
+            torch.cuda.synchronize()
+            X64 = torch.linalg.solve_triangular(ref.double(), R.double(), upper=False)
+            plain = hk.tri_solve_blocked_plain(ref, R)
+            tri.append(dict(n=n, M=M, norm_err_vs_f64=norm(X, X64), plain_norm_err_vs_f64=norm(plain, X64),
+                            max_abs_err=float((X - plain).abs().max())))
+        B = 16 if n <= 128 else (4 if n <= 300 else 2)
+        Ks = torch.stack([path_gram(rng, n, dev) for _ in range(B)])
+        Ks[1, n // 2, n // 2] = -1.0  # indefinite
+        Lb = hk.cholesky_batched(Ks)
+        torch.cuda.synchronize()
+        keep = [i for i in range(B) if i != 1]
+        refb, libb = hk.cholesky_batched_plain(Ks[keep]), torch.linalg.cholesky(Ks[keep])
+        Lk = Lb[keep].double()
+        batched.append(dict(B=B, n=n, in_shared_memory=hk.chol_batch_supported(n),
+                            finite=torch.isfinite(Lb).all(-1).all(-1).tolist(),
+                            backward_err=norm(Lk @ Lk.transpose(1, 2), Ks[keep]), norm_err=norm(Lb[keep], refb),
+                            library_norm_err=norm(libb, refb), max_abs_err=float((Lb[keep] - refb).abs().max()),
+                            tol_backward=n * eps))
+    th3 = torch.tensor([0.7, 0.5, 0.9, 1.1], device=dev)
+    a, b = (torch.as_tensor(rng.randn(m, 3), dtype=torch.float32, device=dev) for m in (300, 512))
+    gram.append(dict(shape=[300, 512, 3], max_abs_err=float((hk.gaussian_gram(th3, a, b) - hk.gaussian_gram_plain(th3, a, b)).abs().max())))
+    bad = path_gram(rng, 300, dev)
+    bad[200, 200] = -1.0  # a pivot of the second panel goes negative
+    nan_blocked = bool(torch.isnan(hk.cholesky_blocked(bad)).all())
+    emit("kernels_large_n", tol=dict(gram_over_h2=GRAM_TOL, chol_norm=CHOL_NORM_TOL, chol_backward="n·eps32",
+                                     tri="max(1e-4, 2 × plain's distance to f64)"),
+         gaussian_gram=gram, cholesky_blocked=chol, tri_solve_blocked=tri, cholesky_batched=batched,
+         cholesky_blocked_nan_on_indefinite=nan_blocked)
+    for c in gram:
+        check(c["max_abs_err"] <= GRAM_TOL * PARAMS_TL[0] ** 2,
+              f"gaussian_gram within {GRAM_TOL}·h² of plain ({c})")
+    for c in chol + batched:
+        check(c["backward_err"] <= c["tol_backward"], f"backward error within n·eps32 ({c})")
+        check(c["norm_err"] <= max(CHOL_NORM_TOL, 2.0 * c["library_norm_err"]), f"factor within the library's distance ({c})")
+    for c in chol:
+        check(c["finite"] and c["upper_zero"], f"cholesky_blocked finite, zeros above the diagonal ({c})")
+    for c in batched:
+        check(c["finite"] == [i != 1 for i in range(c["B"])], f"cholesky_batched NaN confined to the indefinite matrix ({c})")
+    for c in tri:
+        check(c["norm_err_vs_f64"] <= max(1e-4, 2.0 * c["plain_norm_err_vs_f64"]), f"tri_solve_blocked accuracy ({c})")
+    check(nan_blocked, "cholesky_blocked: an indefinite matrix gives a NaN factor")
+    return {"gaussian_gram": max(c["max_abs_err"] for c in gram), "cholesky_blocked": max(c["max_abs_err"] for c in chol),
+            "tri_solve_blocked": max(c["max_abs_err"] for c in tri),
+            "cholesky_batched": max(c["max_abs_err"] for c in batched)}
+
+
+LARGE_WRAPPERS = ("esm_fused", "chol_batch", "gaussian_gram", "cholesky_blocked", "tri_solve_blocked", "cholesky_batched")
+
+
+def kernel_counts() -> dict:
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    return {k: getattr(hk, k).launches for k in LARGE_WRAPPERS}
+
+
+def zero_counts() -> None:
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    for k in LARGE_WRAPPERS + ("mll_grad_batched", "esm_fleet_l", "esm_fleet_tl"):
+        getattr(hk, k).launches = 0
+
+
+def delta(c0: dict, c1: dict) -> dict:
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+def add_counts(opts, kind: str) -> dict:
+    """Expected launches of one large-N add. A refit: per GP a Gram, the
+    factor, and alpha forward + back and L⁻¹ (3 solves), and the cross-Gram of
+    the candidates' anchors. A fast incremental step: two bordering
+    cross-Grams, the anchors' cross-Gram, the linear GP's fresh Gram and
+    factor, and five single-column solves (the log-GP's bordered row, then
+    each GP's alpha forward + back). A fallback (refresh) step: the fast
+    step's work, then the refit's."""
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    ns, nsc = opts.max_obs, opts.max_nsc
+    CB, TB = hk.cholesky_blocked_launches, hk.tri_solve_blocked_launches
+    refit = dict(gaussian_gram=3, cholesky_blocked=CB(ns) + CB(nsc), tri_solve_blocked=3 * (TB(ns) + TB(nsc)))
+    fast = dict(gaussian_gram=4, cholesky_blocked=CB(nsc), tri_solve_blocked=3 * TB(ns) + 2 * TB(nsc))
+    add = {"refit": refit, "fast": fast, "fallback": {k: refit[k] + fast[k] for k in refit}}[kind]
+    return dict(esm_fused=0, chol_batch=0, cholesky_batched=0, **add)
+
+
+def loop_step_counts(opts, kind: str) -> dict:
+    """Expected launches of one step of run_active_loop: choose_next (one
+    esm_fused), the add, and the moments (Z_var's quadrature: 3 Grams and one
+    solve under the log-GP's factor)."""
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    c = add_counts(opts, kind)
+    c["esm_fused"] += 1
+    c["gaussian_gram"] += 3
+    c["tri_solve_blocked"] += hk.tri_solve_blocked_launches(opts.max_obs)
+    return c
+
+
+def marginalize_counts(opts) -> dict:
+    """Expected launches of marginalize over a batch of θ_tl rows: the log-GP
+    rung stack once (chol_batch up to 240 rows, cholesky_batched above), the
+    linear GP's Gram, factor and alpha (forward + back, the batch of anchors
+    as columns), and the V[Z] quadrature's cross-Gram under the linear GP."""
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    small = hk.chol_batch_supported(opts.max_obs)
+    return dict(esm_fused=0, chol_batch=int(small), cholesky_batched=int(not small), gaussian_gram=2,
+                cholesky_blocked=hk.cholesky_blocked_launches(opts.max_nsc),
+                tri_solve_blocked=2 * hk.tri_solve_blocked_launches(opts.max_nsc))
+
+
+def large_n_path(dev) -> dict:
+    """The large-max_obs path at max_obs 128, 256, 512 and 1024 (module
+    docstring, phase 5), through init_state → Z_mean/Z_var →
+    run_active_loop (8 steps, incremental False, True and "auto") →
+    marginalize(100 given θ_tl rows), with the launch counters zeroed before
+    and read after; then, outside the counted run, the checks against the
+    port's float64 CPU path on the same data and picks."""
+    import torch
+
+    from tpubq_torch.models import acquire, bq as bqm, incremental as inc, marginalize as margm
+
+    grid64 = torch.linspace(-4.0, 4.0, LARGE_G, dtype=torch.float64)
+    grid_dev = grid64.to(dev, torch.float32)
+    thetas = torch.as_tensor(np.exp(np.log(PARAMS_TL) + 0.15 * np.random.RandomState(12).randn(LARGE_MARG_N, 2)),
+                             dtype=torch.float32, device=dev)
+    runs = {}
+    zero_counts()
+    t_all = time.perf_counter()
+    for m in LARGE_MAX_OBS:
+        st32, opts = large_state(dev, m, "float32")
+        torch.cuda.synchronize()
+        run = dict(opts=opts, st0=st32, z0=(float(bqm.Z_mean(st32, opts)), float(bqm.Z_var(st32, opts))),
+                   esm_route=acquire.esm_route(st32, opts), modes={})
+        for mode in (False, True, "auto"):
+            c0 = kernel_counts()
+            t0 = time.perf_counter()
+            final, (xs, zm, zv) = acquire.run_active_loop(st32, opts, large_loglik, grid_dev[:, None], LARGE_STEPS,
+                                                          incremental=mode)
+            torch.cuda.synchronize()
+            run["modes"][str(mode)] = dict(final=final, xs=xs[:, 0].cpu().double(), zm=zm.cpu().double(),
+                                           zv=zv.cpu().double(), seconds=time.perf_counter() - t0,
+                                           launches=delta(c0, kernel_counts()))
+        c0 = kernel_counts()
+        zms, zvs = margm.marginalize(run["modes"]["False"]["final"], opts, thetas)
+        torch.cuda.synchronize()
+        run["marg"] = dict(zm=zms.cpu().double(), zv=zvs.cpu().double(), launches=delta(c0, kernel_counts()))
+        # one step of each kind at an interior point clear of the candidates (midway between
+        # two observations): the full refit, a fast incremental step, and a refresh step
+        x_mid = float(st32.x_s[m // 2, 0] + st32.x_s[m // 2 + 1, 0]) / 2.0
+        l_mid = float(large_lik(x_mid))
+        kinds = {}
+        for kind, fn in (("refit", lambda: acquire.add_observation(st32, opts, [x_mid], l_mid)),
+                         ("fast", lambda: inc.add_observation_fast(st32, opts, [x_mid], l_mid, refresh_every=16)),
+                         ("fallback", lambda: inc.add_observation_fast(st32, opts, [x_mid], l_mid,
+                                                                       refresh_every=int(st32.ns) + 1))):
+            c0 = kernel_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            kinds[kind] = dict(launches=delta(c0, kernel_counts()), Z_mean=float(bqm.Z_mean(out, opts)))
+        run["kinds"] = kinds
+        runs[m] = run
+    seconds = time.perf_counter() - t_all
+    launches = kernel_counts()
+
+    # ---- everything below compares; none of it counts as the path's launches
+    results, failures = {}, []
+    for m, run in runs.items():
+        opts = run["opts"]
+        st64, opts64 = large_state("cpu", m, "float64")
+        res = dict(esm_route=run["esm_route"], live_condition_f64=live_conditions(st64), s=S_LARGE)
+        z64 = (float(bqm.Z_mean(st64, opts64)), float(bqm.Z_var(st64, opts64)))
+        rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+        # each mode's picks replayed in float64 on the CPU and, for the scorer's
+        # resolved set, in float32 on the card (the same deterministic steps)
+        for mode, add in (("False", lambda st_, o, x, l: acquire.add_observation(st_, o, [x], l)),
+                          ("True", lambda st_, o, x, l: inc.add_observation_fast(st_, o, [x], l))):
+            loop = run["modes"][mode]
+            s32, s64 = run["st0"], st64
+            zrel, vrel = [rel(run["z0"][0], z64[0])], [rel(run["z0"][1], z64[1])]
+            gaps, errs, resolved = [], [], []
+            for k, x in enumerate(loop["xs"].tolist()):
+                gap, err, n_ok = pick_gap(s32, opts, s64, opts64, x, grid_dev, grid64)
+                gaps.append(gap)
+                errs.append(err)
+                resolved.append(n_ok)
+                lx = float(large_lik(x))
+                s32 = add(s32, opts, x, lx)
+                s64 = acquire.add_observation(s64, opts64, [x], lx)
+                zrel.append(rel(float(loop["zm"][k]), float(bqm.Z_mean(s64, opts64))))
+                vrel.append(rel(float(loop["zv"][k]), float(bqm.Z_var(s64, opts64))))
+            key = "refit" if mode == "False" else "incremental"
+            res[key] = dict(Z_mean_rel=max(zrel), Z_var_rel=max(vrel), pick_gaps=gaps, esm_f32_errs=errs,
+                            f32_resolved_points=resolved, picks=loop["xs"].tolist())
+            if mode == "False":
+                s64_refit = s64
+        n64 = LARGE_F64_MARG if m >= 1024 else LARGE_MARG_N
+        zm64s, _ = margm.marginalize(s64_refit, opts64, thetas[:n64].double().cpu())
+        res["marg_Z_mean_max_rel"] = float(((run["marg"]["zm"][:n64] - zm64s).abs() / zm64s.abs()).max())
+        res["marg_rows_vs_f64"] = n64
+        # incremental ≡ refit on the card: each within the float64 tolerances on its own
+        # picks, and, where the picks agree, within INC_* of each other step by step
+        inc_run, refit = run["modes"]["True"], run["modes"]["False"]
+        same = bool(torch.equal(inc_run["xs"], refit["xs"]))
+        res["incremental_vs_refit"] = dict(
+            same_picks=same, Z_mean_rel=float(((inc_run["zm"] - refit["zm"]).abs() / refit["zm"].abs()).max()),
+            Z_var_rel=float(((inc_run["zv"] - refit["zv"]).abs() / refit["zv"].abs()).max()))
+        auto_mode = str(inc.incremental_auto(m))
+        auto = run["modes"]["auto"]
+        res["auto_resolves_to"] = auto_mode
+        res["auto_identical"] = all(torch.equal(auto[k], run["modes"][auto_mode][k]) for k in ("xs", "zm", "zv"))
+        # launch counts: exact per step kind
+        for kind in ("refit", "fast", "fallback"):
+            want = add_counts(opts, kind)
+            res[f"{kind}_step_launches"] = run["kinds"][kind]["launches"]
+            if run["kinds"][kind]["launches"] != want:
+                failures.append(f"max_obs {m}: a {kind} step launched {run['kinds'][kind]['launches']}, expected {want}")
+        if run["modes"]["False"]["launches"] != {k: LARGE_STEPS * v for k, v in loop_step_counts(opts, "refit").items()}:
+            failures.append(f"max_obs {m}: the refit loop launched {run['modes']['False']['launches']}")
+        # the incremental loop: k fast steps and 8 − k fallback steps, k read off cholesky_blocked
+        got = run["modes"]["True"]["launches"]
+        fast, back = loop_step_counts(opts, "fast"), loop_step_counts(opts, "fallback")
+        k_fast = (LARGE_STEPS * back["cholesky_blocked"] - got["cholesky_blocked"]) // max(
+            1, back["cholesky_blocked"] - fast["cholesky_blocked"])
+        want = {k: k_fast * fast[k] + (LARGE_STEPS - k_fast) * back[k] for k in fast}
+        res["incremental_loop"] = dict(fast_steps=k_fast, launches=got)
+        if got != want:
+            failures.append(f"max_obs {m}: the incremental loop launched {got}, not {k_fast} fast + "
+                            f"{LARGE_STEPS - k_fast} fallback steps {want}")
+        res["marginalize_launches"] = run["marg"]["launches"]
+        if run["marg"]["launches"] != marginalize_counts(opts):
+            failures.append(f"max_obs {m}: marginalize launched {run['marg']['launches']}, expected {marginalize_counts(opts)}")
+        res["fast_step_Z_mean_rel_to_refit"] = rel(run["kinds"]["fast"]["Z_mean"], run["kinds"]["refit"]["Z_mean"])
+        res["seconds_per_mode"] = {k: v["seconds"] for k, v in run["modes"].items()}
+        results[m] = res
+    emit("large_n_path", steps=LARGE_STEPS, G=LARGE_G, s=S_LARGE, seconds=seconds, launches=launches,
+         tol=dict(Z_mean=LARGE_ZMEAN_RTOL, Z_var=LARGE_ZVAR_RTOL, marg_mean=LARGE_MARG_RTOL,
+                  inc_Z_mean=INC_ZMEAN_RTOL, inc_Z_var=INC_ZVAR_RTOL, esm_argmax=ESM_ARGMAX_RTOL),
+         **{f"max_obs_{m}": r for m, r in results.items()})
+    check(not failures, f"large-N launch counts: {failures}")
+    check(all(launches[k] > 0 for k in ("gaussian_gram", "cholesky_blocked", "tri_solve_blocked", "cholesky_batched")),
+          f"every kernel of the large-N path launched ({launches})")
+    for m, r in results.items():
+        for key in ("refit", "incremental"):
+            q = r[key]
+            check(q["Z_mean_rel"] <= LARGE_ZMEAN_RTOL, f"max_obs {m}, {key}: Z_mean f32 card vs f64 CPU ({q['Z_mean_rel']})")
+            check(q["Z_var_rel"] <= LARGE_ZVAR_RTOL, f"max_obs {m}, {key}: Z_var f32 card vs f64 CPU ({q['Z_var_rel']})")
+            check(all(g <= max(ESM_ARGMAX_RTOL, 2.0 * e) for g, e in zip(q["pick_gaps"], q["esm_f32_errs"])
+                      if g is not None),
+                  f"max_obs {m}, {key}: each pick is the f64 ESM maximum over the resolved points, up to the f32 scorer's error")
+        check(r["marg_Z_mean_max_rel"] <= LARGE_MARG_RTOL, f"max_obs {m}: marginalized Z_mean ({r['marg_Z_mean_max_rel']})")
+        iv = r["incremental_vs_refit"]
+        check(not iv["same_picks"] or (iv["Z_mean_rel"] <= INC_ZMEAN_RTOL and iv["Z_var_rel"] <= INC_ZVAR_RTOL),
+              f"max_obs {m}: incremental ≡ refit on the card ({iv})")
+        check(r["auto_identical"], f"max_obs {m}: auto ≡ incremental={r['auto_resolves_to']}")
+        check(r["fast_step_Z_mean_rel_to_refit"] <= INC_ZMEAN_RTOL, f"max_obs {m}: fast step ≡ refit step")
+    return {"launches": launches}
+
+
+def esm_size_routes(dev) -> dict:
+    """Which scorer each state size takes (``acquire.esm_route``), and the
+    card's float32 scores held to the CPU's float32 scores on the same route
+    at 1e-4 of the largest score, off at most 2 points (degenerate-mask flips
+    between two float32 evaluations): the testbed's 10 points at max_obs 32,
+    1024 and 2048. At 2048 the state exceeds esm_fused's shared-memory budget
+    and takes the plain scorer, as the JAX package scores every size."""
+    import torch
+
+    from tpubq_torch.models import acquire
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    grid = np.linspace(-4.0, 4.0, 2001)
+    out = {}
+    for max_obs in (32, 1024, 2048):
+        bq, cpu = (make_bq(testbed_x(False), d, "float32", max_obs=max_obs, s=S_MAIN) for d in (dev, "cpu"))
+        e0 = hk.esm_fused.launches
+        got = torch.as_tensor(bq.expected_squared_mean(grid))
+        torch.cuda.synchronize()
+        want = torch.as_tensor(cpu.expected_squared_mean(grid))
+        off = (got - want).abs() > 1e-4 * float(want.abs().max())
+        out[max_obs] = dict(route=acquire.esm_route(bq.state, bq.options), esm_fused_launches=hk.esm_fused.launches - e0,
+                            NP=bq.options.max_nsc, points_off=int(off.sum()),
+                            max_rel_err=float(((got - want).abs() / want.abs().max())[~off].max()))
+    emit("esm_size_routes", G=len(grid), **{f"max_obs_{m}": r for m, r in out.items()})
+    check(out[2048]["route"] == "plain" and out[2048]["esm_fused_launches"] == 0, "max_obs 2048 takes the plain scorer")
+    check(out[32]["route"] == out[1024]["route"] == "esm_fused", "max_obs 32 and 1024 take esm_fused")
+    check(all(r["points_off"] <= 2 for r in out.values()), f"card scores ≡ CPU scores on every route ({out})")
+    return out
+
+
+def large_timing(dev, label: str) -> dict:
+    """CUDA-event times of the four kernels of the large-N path, their plain
+    versions and the library call beside each, at the path's max_obs 1024
+    shapes; and the refit / incremental sweep: host ms per closed-loop step of
+    run_active_loop (8 steps, record_moments=False, turns refit, incremental,
+    incremental, refit) and per add at an interior point, at max_obs 64 … 1024."""
+    import torch
+
+    from tpubq_torch.models import acquire, incremental as inc
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    rng = np.random.RandomState(9)
+    n, ns = LARGE_TIMING_N
+    th = torch.tensor(PARAMS_L, device=dev)
+    x = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=dev)
+    kern = {}
+    kern["gaussian_gram"] = dict(shape=f"({n}, {n}), d = 1", kernel_ms=cuda_ms(lambda: hk.gaussian_gram(th, x, x), 200),
+                                 plain_ms=cuda_ms(lambda: hk.gaussian_gram_plain(th, x, x), 50), library_ms=None)
+    for N in (n, ns):
+        A = path_gram(rng, N, dev)
+        kern[f"cholesky_blocked_{N}"] = dict(
+            kernel_ms=cuda_ms(lambda: hk.cholesky_blocked(A), 20), plain_ms=cuda_ms(lambda: hk.cholesky_blocked_plain(A), 1),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A), 20), launches_per_call=hk.cholesky_blocked_launches(N))
+    L = torch.linalg.cholesky(path_gram(rng, n, dev)).contiguous()
+    for M in (n, 1, 100):
+        R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
+        lib = cuda_ms(lambda: torch.linalg.solve_triangular(L, R, upper=False), 20)
+        kern[f"tri_solve_blocked_{n}x{M}"] = dict(kernel_ms=cuda_ms(lambda: hk.tri_solve_blocked(L, R), 20), plain_ms=lib,
+                                                  library_ms=lib, launches_per_call=hk.tri_solve_blocked_launches(n))
+    for B, N in LARGE_TIMING_BATCHED:
+        base = torch.stack([path_gram(rng, N, dev) for _ in range(8)])
+        Ks = base.repeat(B // 8, 1, 1).contiguous()
+        kern[f"cholesky_batched_{B}x{N}"] = dict(
+            kernel_ms=cuda_ms(lambda: hk.cholesky_batched(Ks), 3, warmup=1),
+            plain_ms=cuda_ms(lambda: hk.cholesky_batched_plain(Ks), 1, warmup=0),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Ks), 3, warmup=1))
+        del base, Ks
+    torch.cuda.empty_cache()
+
+    grid = torch.linspace(-4.0, 4.0, LARGE_G, device=dev)[:, None]
+    sweep = {}
+    for m in LARGE_SWEEP:
+        st, opts = large_state(dev, m, "float32")
+
+        def loop(mode):
+            return acquire.run_active_loop(st, opts, large_loglik, grid, LARGE_STEPS, incremental=mode,
+                                           record_moments=False)
+
+        t = {True: [], False: []}
+        for mode in (False, True, True, False):
+            t[mode].append(host_ms(lambda: loop(mode), 2) / LARGE_STEPS)
+        c0 = kernel_counts()
+        loop(True)
+        torch.cuda.synchronize()
+        got = delta(c0, kernel_counts())
+        fast, back = add_counts(opts, "fast"), add_counts(opts, "fallback")
+        k_fast = (LARGE_STEPS * back["cholesky_blocked"] - got["cholesky_blocked"]) // max(
+            1, back["cholesky_blocked"] - fast["cholesky_blocked"])
+        x_mid = float(st.x_s[m // 2, 0] + st.x_s[m // 2 + 1, 0]) / 2.0
+        add_refit = host_ms(lambda: acquire.add_observation(st, opts, [x_mid], 0.3), 5)
+        add_fast = host_ms(lambda: inc.add_observation_fast(st, opts, [x_mid], 0.3), 5)
+        refit_ms, inc_ms = float(np.mean(t[False])), float(np.mean(t[True]))
+        sweep[m] = dict(refit_ms_per_step=refit_ms, incremental_ms_per_step=inc_ms, refit_over_incremental=refit_ms / inc_ms,
+                        runs_ms_per_step=dict(refit=t[False], incremental=t[True]), fast_steps_of_8=k_fast,
+                        add_refit_ms=add_refit, add_fast_ms=add_fast, add_refit_over_fast=add_refit / add_fast)
+    res = dict(card=label, kernels=kern, sweep={f"max_obs_{m}": v for m, v in sweep.items()},
+               window=list(inc.INCREMENTAL_AUTO_WINDOW))
+    emit("large_n_timing", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the s = 0 observation (printed, not gated)
 # ---------------------------------------------------------------------------
 
 
@@ -1178,7 +1681,7 @@ def s0_observation(dev, max_steps: int = 20) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phase 7: timing
 # ---------------------------------------------------------------------------
 
 
@@ -1319,6 +1822,40 @@ def fleet_timing(dev, fk: dict, fp: dict, mp: dict, label: str) -> dict:
     return res
 
 
+def large_kernel_entries(lp: dict, lk: dict, lt: dict) -> list:
+    """The kernels-line entries of the large-N path's four kernels at its
+    max_obs 1024 shapes: the linear GP's Gram and factor (n = 1036), its K⁻¹
+    solve (L⁻¹ against I), marginalize's rung stack (200, 1024, 1024).
+    Bounds: Cholesky n³/3 flops (n dependent steps), the solve N²M flops,
+    the Gram 6 operations per entry at d = 1; bytes as everywhere."""
+    gn = LARGE_TIMING_N[0]
+    bB, bn = LARGE_TIMING_BATCHED[-1]
+    kt = lt["kernels"]
+    g_t, cb_t = kt["gaussian_gram"], kt[f"cholesky_blocked_{gn}"]
+    ts_t, cbat_t = kt[f"tri_solve_blocked_{gn}x{gn}"], kt[f"cholesky_batched_{bB}x{bn}"]
+    return [
+        dict(name="gaussian_gram", route="cuda", source="tpubq_torch/csrc/gaussian_gram.cu",
+             replaces="tpubq/ops/pallas_kernels.py:144", launches=lp["launches"]["gaussian_gram"],
+             max_abs_err=lk["gaussian_gram"], ms=g_t["kernel_ms"], plain_ms=g_t["plain_ms"],
+             **bound(4 * (2 * gn + 2 + gn * gn), 6 * gn * gn), library_ms=None, shape=g_t["shape"]),
+        dict(name="cholesky_blocked", route="cuda", source="tpubq_torch/csrc/chol_blocked.cu",
+             replaces="tpubq/ops/pallas_kernels.py:511", launches=lp["launches"]["cholesky_blocked"],
+             max_abs_err=lk["cholesky_blocked"], ms=cb_t["kernel_ms"], plain_ms=cb_t["plain_ms"],
+             **bound(2 * 4 * gn * gn, gn**3 / 3), library_ms=cb_t["library_ms"], shape=f"({gn}, {gn})",
+             dependent_steps=gn, launches_per_call=cb_t["launches_per_call"]),
+        dict(name="tri_solve_blocked", route="cuda", source="tpubq_torch/csrc/tri_solve_blocked.cu",
+             replaces="tpubq/ops/pallas_kernels.py:563", launches=lp["launches"]["tri_solve_blocked"],
+             max_abs_err=lk["tri_solve_blocked"], ms=ts_t["kernel_ms"], plain_ms=ts_t["plain_ms"],
+             **bound(4 * (gn * gn / 2 + 2 * gn * gn), gn * gn * gn), library_ms=ts_t["library_ms"],
+             shape=f"({gn}, {gn}) x ({gn}, {gn})", launches_per_call=ts_t["launches_per_call"]),
+        dict(name="cholesky_batched", route="cuda", source="tpubq_torch/csrc/chol_batch.cu",
+             replaces="tpubq/ops/pallas_kernels.py:211", launches=lp["launches"]["cholesky_batched"],
+             max_abs_err=lk["cholesky_batched"], ms=cbat_t["kernel_ms"], plain_ms=cbat_t["plain_ms"],
+             **bound(2 * 4 * bB * bn * bn, bB * bn**3 / 3), library_ms=cbat_t["library_ms"],
+             shape=f"({bB}, {bn}, {bn})", dependent_steps=bn),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1344,12 +1881,16 @@ def main() -> int:
     chol = check_chol(dev)
     mll = check_mll(dev)
     fk = check_fleet_kernels(dev)
+    lk = check_large_kernels(dev)
     fleet_precision(dev)
     mp = main_path(dev)
     fp = fleet_path(dev)
+    lp = large_n_path(dev)
+    esm_size_routes(dev)
     s0_observation(dev)
     t = timing(dev, mp, label)
     ft = fleet_timing(dev, fk, fp, mp, label)
+    lt = large_timing(dev, label)
 
     # Bounds from this run's shapes: each input read once and each output written once
     # against the HBM rate; float32 operations (an expf counted as one) against the
@@ -1401,7 +1942,9 @@ def main() -> int:
              plain_ms=fl_t["esm_fleet_tl_plain_ms"], **bound(ftl_bytes, ftl_ops), library_ms=None,
              shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
+    kernels += large_kernel_entries(lp, lk, lt)
     kernels[1]["fleet_launches"] = fp["launches"]["chol_batch"]
+    kernels[1]["large_n_launches"] = lp["launches"]["chol_batch"]
     emit("elapsed", seconds=time.perf_counter() - t_start, limit_seconds=1200)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(label, flush=True)

@@ -17,7 +17,13 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
   mll_grad launch), from the initial fleet state;
 * ``fleet_step`` — one ``BQFleet.choose_next`` over the grid plus one
   ``add_observation`` at B = 64 (the fleet of chip_smoke.py, after the fit and
-  three steps).
+  three steps);
+* ``large_refit_step`` / ``large_fast_step`` — at max_obs 1024 (chip_smoke.py's
+  large-N recipe, 1,012 observations, s = 0.05, a 512-point grid): one
+  choose_next plus one add at an interior point between two observations, by
+  the full refit or by a fast incremental step (``add_observation_fast``);
+* ``large_marginalize`` — marginalize over 100 given θ_tl rows at max_obs
+  1024 (the (200, 1024, 1024) rung stack on cholesky_batched).
 
 For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
@@ -115,8 +121,30 @@ def main() -> int:
         profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), args.iters, out)
         profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out)
         profile_fleet(dev, grid, args.iters, out)
+        profile_large_n(dev, args.iters, out)
     bq._state = st
     return 0
+
+
+def profile_large_n(dev, iters: int, out) -> None:
+    import torch
+
+    from tpubq_torch.models import acquire, incremental as inc, marginalize as margm
+
+    st, opts = cs.large_state(dev, 1024, "float32")
+    grid = torch.linspace(-4.0, 4.0, cs.LARGE_G, device=dev)[:, None]
+    x_mid = float(st.x_s[512, 0] + st.x_s[513, 0]) / 2.0
+    l_mid = float(cs.large_lik(x_mid))
+
+    def step(add):
+        acquire.choose_next(st, opts, grid)
+        add(st, opts, [x_mid], l_mid)
+
+    profile_piece("large_refit_step", lambda: step(acquire.add_observation), iters, out)
+    profile_piece("large_fast_step", lambda: step(inc.add_observation_fast), iters, out)
+    thetas = torch.as_tensor(np.exp(np.log(cs.PARAMS_TL) + 0.15 * np.random.RandomState(12).randn(cs.LARGE_MARG_N, 2)),
+                             dtype=torch.float32, device=dev)
+    profile_piece("large_marginalize", lambda: margm.marginalize(st, opts, thetas), 3, out)
 
 
 def profile_fleet(dev, grid, iters: int, out) -> None:

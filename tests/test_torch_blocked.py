@@ -1,0 +1,197 @@
+"""The large-matrix kernels of the port (tpubq_torch.ops.hopper_kernels:
+gaussian_gram, cholesky_blocked, tri_solve_blocked, cholesky_batched) in
+their plain versions, against the Pallas kernels of the JAX package in
+interpret mode, and the routes that send a float32 problem on the card to
+them (``linalg``, ``kernels.gaussian_K``, ``acquire.esm_route``), followed on
+the CPU through the plain versions.
+
+Sizes are small but cross panels: the JAX wrappers take ``block=`` (16 rows
+here, so N = 40 has three panels and a ragged last one). Tolerances: the
+pins of tests/test_pallas.py — the Gram at atol 1e-6, the blocked Cholesky at
+rtol 2e-5 / atol 2e-4, the blocked solve at rtol 2e-4 / atol 2e-4, the batched
+Cholesky at atol 5e-5; float32 against float32 on other summation orders.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests import util as tu
+from tests.torch_parity import np_
+from tpubq.ops import pallas_kernels as pk
+from tpubq_torch.models import acquire as tacq, bq as tbq, gp as tgp
+from tpubq_torch.ops import hopper_kernels as hk
+from tpubq_torch.ops import kernels as tk
+from tpubq_torch.ops import linalg as tla
+from tpubq_torch.utils.options import BQOptions
+
+
+def _spd(rng, N, dtype=np.float32):
+    A = rng.randn(N, N)
+    return (A @ A.T + N * np.eye(N)).astype(dtype)
+
+
+def _f32(a):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n1,n2,d", [(50, 300, 1), (20, 40, 3)])
+def test_gaussian_gram_plain_matches_pallas(n1, n2, d):
+    rng = np.random.RandomState(7 + d)
+    theta = np.concatenate([[1.3], rng.uniform(0.5, 1.1, d)]).astype(np.float32)
+    x1, x2 = rng.randn(n1, d).astype(np.float32), rng.randn(n2, d).astype(np.float32)
+    want = np.asarray(pk.gaussian_gram(jnp.asarray(theta), jnp.asarray(x1), jnp.asarray(x2), tile=16))
+    got = hk.gaussian_gram(_f32(theta), _f32(x1), _f32(x2))  # a CPU tensor takes the plain version
+    np.testing.assert_allclose(np_(got), want, atol=1e-6)
+    # the plain version runs kernels.gaussian_K's operations in its order
+    assert torch.equal(got, tk.gaussian_K(_f32(theta), _f32(x1), _f32(x2)))
+
+
+def test_gaussian_gram_closed_form_backward_matches_autograd():
+    """The backward of the kernel's autograd node (``gaussian_gram_vjp``)
+    against autograd through the plain Gram, in float64 at rtol 1e-12."""
+    rng = np.random.RandomState(3)
+    theta = torch.tensor([1.2, 0.7, 0.9], dtype=torch.float64, requires_grad=True)
+    x1 = torch.tensor(rng.randn(6, 2), requires_grad=True)
+    x2 = torch.tensor(rng.randn(9, 2), requires_grad=True)
+    G = torch.tensor(rng.randn(6, 9))
+    K = hk.gaussian_gram_plain(theta, x1, x2)
+    want = torch.autograd.grad((K * G).sum(), (theta, x1, x2))
+    got = hk.gaussian_gram_vjp(theta.detach(), x1.detach(), x2.detach(), K.detach(), G)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-14)
+
+
+def test_cholesky_blocked_plain_matches_pallas():
+    K = _spd(np.random.RandomState(1), 40)
+    want = np.asarray(pk.cholesky_blocked(jnp.asarray(K), block=16))
+    L = hk.cholesky_blocked(_f32(K))
+    np.testing.assert_allclose(np_(L), want, rtol=2e-5, atol=2e-4)
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert hk.cholesky_blocked_launches(40) == 1 and hk.cholesky_blocked_launches(1036) == 25
+
+
+def test_cholesky_blocked_and_batched_nan_where_a_pivot_clamps():
+    """A matrix that is not positive definite gives a NaN factor (its pivot
+    was clamped), in its own entry of a stack only."""
+    rng = np.random.RandomState(4)
+    bad = -_spd(rng, 21)
+    assert bool(torch.isnan(hk.cholesky_blocked(_f32(bad))).all())
+    Ks = np.stack([_spd(rng, 21) for _ in range(5)])
+    Ks[2] = bad
+    L = hk.cholesky_batched(_f32(Ks))
+    fin = torch.isfinite(L).all(-1).all(-1).tolist()
+    assert fin == [True, True, False, True, True]
+
+
+def test_tri_solve_blocked_plain_matches_pallas():
+    rng = np.random.RandomState(2)
+    L = np.linalg.cholesky(_spd(rng, 40).astype(np.float64)).astype(np.float32)
+    R = rng.randn(40, 7).astype(np.float32)
+    want = np.asarray(pk.tri_solve_blocked(jnp.asarray(L), jnp.asarray(R), block=16))
+    np.testing.assert_allclose(np_(hk.tri_solve_blocked(_f32(L), _f32(R))), want, rtol=2e-4, atol=2e-4)
+    assert hk.tri_solve_blocked_launches(40) == 2 and hk.tri_solve_blocked_launches(1036) == 10
+
+
+def test_cholesky_batched_plain_matches_pallas():
+    rng = np.random.RandomState(7)
+    Ks = np.stack([_spd(rng, 21) for _ in range(9)])
+    want = np.asarray(pk.cholesky_batched(jnp.asarray(Ks)))
+    L = hk.cholesky_batched(_f32(Ks))
+    np.testing.assert_allclose(np_(L), want, atol=5e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_tri_solve_kernel_route_batches_rhs_as_columns(lower):
+    """The kernel route of ``linalg.tri_solve`` (batch entries as columns; an
+    upper factor solved forward on the flipped copy) against the library's
+    triangular solve, float32 at rtol 1e-5 on a well-conditioned factor."""
+    rng = np.random.RandomState(5)
+    L = _f32(np.linalg.cholesky(_spd(rng, 30).astype(np.float64)))
+    T = L if lower else L.T
+    b = _f32(rng.randn(3, 2, 30, 4))
+    want = torch.linalg.solve_triangular(T, b, upper=not lower)
+    torch.testing.assert_close(tla._tri_solve_kernel(T, b, lower), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture
+def card_routes(monkeypatch):
+    """Every route takes its card branch on the CPU: the wrappers, given CPU
+    tensors, run their plain versions, and each call is counted."""
+    calls = {}
+    monkeypatch.setattr(hk, "on_card", lambda t: True)
+    for name in ("gaussian_gram", "cholesky_blocked", "tri_solve_blocked", "chol_batch",
+                 "cholesky_batched", "esm_fused"):
+        fn = getattr(hk, name)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a)
+
+        monkeypatch.setattr(hk, name, counted)
+    return calls
+
+
+def _state(max_obs, n=10, s=0.05, dtype="float32"):
+    opts = BQOptions(n_candidate=12, candidate_thresh=0.2, max_obs=max_obs, dtype=dtype)
+    x = np.linspace(-2.2, 2.2, n)
+    return tbq.init_state(x, tu.f_l(x), opts, params_tl=(0.7, 0.8), params_l=(0.3, 0.4), s_tl=s, s_l=s,
+                          device="cpu"), opts
+
+
+def test_refit_on_the_kernel_routes_matches_the_library_route(card_routes):
+    """One float32 refit along the card's routes (Grams on gaussian_gram, the
+    ladder on cholesky_blocked, alpha and K⁻¹ = YᵀY on tri_solve_blocked)
+    against the library route on the same state: rtol 1e-4 on the factors,
+    alpha and K⁻¹ normwise (float32, κ ≈ 1e3)."""
+    st, opts = _state(32)
+    card_routes.clear()
+    routed = tbq._fit_gps(st, opts)
+    counts = dict(card_routes)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(hk, "on_card", lambda t: False)
+        plain = tbq._fit_gps(st, opts)
+    assert counts == {"gaussian_gram": 3, "cholesky_blocked": 2, "tri_solve_blocked": 6}
+    for name in ("gp_log_l", "gp_l"):
+        a, b = getattr(routed, name), getattr(plain, name)
+        for f in ("L", "alpha", "Kinv"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert float((x - y).abs().max() / y.abs().max()) < 1e-4, (name, f)
+        assert bool(a.ok)
+
+
+def test_marginalize_routes(card_routes):
+    """marginalize's batched refit: chol_batch up to 240 rows, cholesky_batched
+    above; the linear GP (one factor, a batch of right-hand sides) on
+    cholesky_blocked and tri_solve_blocked."""
+    from tpubq_torch.models import marginalize as tmarg
+
+    thetas = torch.tensor([[0.7, 0.8], [0.6, 0.9], [0.8, 0.7]], dtype=torch.float32)
+    for max_obs, batched in ((32, "chol_batch"), (244, "cholesky_batched")):
+        st, opts = _state(max_obs)
+        card_routes.clear()
+        zm, zv = tmarg.marginalize(st, opts, thetas)
+        assert card_routes.get(batched) == 1
+        assert "chol_batch" not in card_routes or batched == "chol_batch"
+        assert card_routes["cholesky_blocked"] == 1 and card_routes["tri_solve_blocked"] == 2
+        assert bool(torch.isfinite(zm).all() and (zv >= 0).all())
+
+
+def test_esm_route_by_size():
+    """esm_fused where its shared-memory budget covers the state; the plain
+    scorer above it (max_obs 2048), where it equals expected_squared_mean_xla."""
+    st, opts = _state(32)
+    assert tacq.esm_route(st, opts) == "esm_fused"
+    st, opts = _state(2048, s=0.01)
+    assert tacq.esm_route(st, opts) == "plain"
+    assert not hk.esm_fused_supported(2060, 2048, 1) and hk.esm_fused_supported(1036, 1024, 1)
+    grid = torch.linspace(-4.0, 4.0, 101)[:, None]
+    assert torch.equal(tacq.expected_squared_mean(st, opts, grid), tacq.expected_squared_mean_xla(st, opts, grid))
+
+
+def test_gp_fit_unbatched_kinv_is_symmetric_on_the_route(card_routes):
+    st, _ = _state(32)
+    gp = tgp.gp_fit(tk.gaussian_K, st.gp_l.theta, st.gp_l.s, st.x_sc, st.l_sc, st.sc_mask)
+    assert torch.equal(gp.Kinv, gp.Kinv.T)

@@ -17,7 +17,11 @@ gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4); the
 two fleet scorer kernels, on fleets with noise 0.05, at 1e-4 of each problem's
 largest value for m_a, c_a, A and the combined score and 1e-3 for B (a
 quotient by the Schur complement), off the few points where the degenerate
-masks differ.
+masks differ; the large-max_obs kernels on Grams of the large-N recipe at
+s = 0.05 (κ up to ~1e5): the Gram at 1e-6 of h², the two Choleskys at a
+backward error of n·eps32 and within max(1e-4, 2 × the library's distance)
+of the plain recursion, the blocked solve within max(1e-4, 2 × the library's
+distance) of float64.
 """
 
 import numpy as np
@@ -315,3 +319,183 @@ def test_fleet_default_device_is_the_card_and_goes_through_the_kernels(cuda):
     c3 = counts()
     assert c3[3] >= c2[3] + 2 and fleet.ns.tolist() == [9] * 8
     assert np.all(np.isfinite(fleet.Z_mean())) and np.all(fleet.Z_var() >= 0)
+
+
+# ---------------------------------------------------------------------------
+# the large-max_obs path: gaussian_gram, cholesky_blocked, tri_solve_blocked,
+# cholesky_batched
+# ---------------------------------------------------------------------------
+
+
+def _path_gram(rng, n, s, device, theta=(0.7, 0.8)):
+    """The identity-free Gram of n sorted uniform points plus s² on the
+    diagonal (the large-N path's log-GP Gram at n = max_obs)."""
+    x = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=device)
+    th = torch.tensor(theta, dtype=torch.float32, device=device)
+    return hk.gaussian_gram(th, x, x) + s * s * torch.eye(n, device=device)
+
+
+@pytest.mark.parametrize("n1,n2,d", [(1036, 1036, 1), (1036, 1, 1), (300, 512, 3), (44, 10_000, 1)])
+def test_gaussian_gram_kernel_matches_plain(cuda, n1, n2, d):
+    """At 1e-6 of h² (expf against torch.exp: a few float32 ulps)."""
+    rng = np.random.RandomState(n1 + d)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    theta = torch.as_tensor(np.concatenate([[0.7], rng.uniform(0.3, 1.0, d)]), **f32)
+    x1, x2 = torch.as_tensor(rng.randn(n1, d), **f32), torch.as_tensor(rng.randn(n2, d), **f32)
+    before = hk.gaussian_gram.launches
+    K = hk.gaussian_gram(theta, x1, x2)
+    torch.cuda.synchronize()
+    assert hk.gaussian_gram.launches == before + 1
+    assert float((K - hk.gaussian_gram_plain(theta, x1, x2)).abs().max()) <= 1e-6 * 0.49
+
+
+def test_gaussian_gram_kernel_backward_matches_autograd_through_plain(cuda):
+    rng = np.random.RandomState(1)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    args = [torch.as_tensor(a, **f32).requires_grad_(True)
+            for a in ([0.9, 0.6, 1.1], rng.randn(40, 2), rng.randn(70, 2))]
+    G = torch.as_tensor(rng.randn(40, 70), **f32)
+    got = torch.autograd.grad((hk.gaussian_gram(*args) * G).sum(), args)
+    want = torch.autograd.grad((hk.gaussian_gram_plain(*args) * G).sum(), args)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("n", [44, 128, 300, 1036])
+def test_cholesky_blocked_kernel_matches_plain(cuda, n):
+    """Backward error ≤ n·eps32 of max|A|, and within 1e-4 of the plain
+    recursion normwise (or twice the library's distance to it) on a Gram of
+    the large-N path at s = 0.05 (κ ≈ 1e5 at n = 1036)."""
+    A = _path_gram(np.random.RandomState(n), n, 0.05, cuda)
+    before = hk.cholesky_blocked.launches
+    L = hk.cholesky_blocked(A)
+    torch.cuda.synchronize()
+    assert hk.cholesky_blocked.launches == before + hk.cholesky_blocked_launches(n)
+    assert bool(torch.isfinite(L).all()) and bool((torch.triu(L, 1) == 0).all())
+    L64 = L.double()
+    backward = float((L64 @ L64.T - A.double()).abs().max() / A.abs().max())
+    assert backward <= n * torch.finfo(torch.float32).eps
+    ref, lib = hk.cholesky_blocked_plain(A), torch.linalg.cholesky(A)
+    norm = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    assert norm(L, ref) <= max(1e-4, 2.0 * norm(lib, ref))
+
+
+def test_cholesky_blocked_kernel_nan_and_input_checks(cuda):
+    A = _path_gram(np.random.RandomState(3), 300, 0.05, cuda)
+    A[200, 200] = -1.0  # a pivot of the second panel goes negative
+    assert bool(torch.isnan(hk.cholesky_blocked(A)).all())
+    with pytest.raises(TypeError):
+        hk.cholesky_blocked(A.double())
+    with pytest.raises(ValueError):
+        hk.cholesky_blocked(A[:, :299])
+    with pytest.raises(ValueError):
+        hk.cholesky_blocked(A.T[:, ::2])
+
+
+@pytest.mark.parametrize("n,M", [(44, 1), (300, 33), (1036, 1), (1036, 1036)])
+def test_tri_solve_blocked_kernel_matches_plain(cuda, n, M):
+    """Against the library's triangular solve on the factor of a path Gram:
+    within max(1e-4, 2 × the library's own distance to float64), normwise."""
+    rng = np.random.RandomState(n + M)
+    L = torch.linalg.cholesky(_path_gram(rng, n, 0.05, cuda)).contiguous()
+    R = torch.eye(n, device=cuda) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=cuda)
+    before = hk.tri_solve_blocked.launches
+    X = hk.tri_solve_blocked(L, R)
+    torch.cuda.synchronize()
+    assert hk.tri_solve_blocked.launches == before + hk.tri_solve_blocked_launches(n)
+    X64 = torch.linalg.solve_triangular(L.double(), R.double(), upper=False)
+    norm = lambda a: float((a.double() - X64).abs().max() / X64.abs().max())  # noqa: E731
+    assert norm(X) <= max(1e-4, 2.0 * norm(hk.tri_solve_blocked_plain(L, R)))
+
+
+def test_tri_solve_blocked_kernel_input_checks(cuda):
+    L = torch.eye(8, device=cuda)
+    with pytest.raises(ValueError):
+        hk.tri_solve_blocked(L, torch.ones(7, 2, device=cuda))
+    with pytest.raises(TypeError):
+        hk.tri_solve_blocked(L, torch.ones(8, 2, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="is on"):
+        hk.tri_solve_blocked(L, torch.ones(8, 2))
+
+
+@pytest.mark.parametrize("B,n", [(16, 44), (4, 300), (2, 1036)])
+def test_cholesky_batched_kernel_matches_plain_and_confines_nan(cuda, B, n):
+    """In shared memory (n ≤ 240) and in device memory above; one matrix of
+    the stack made indefinite gets NaN, the others within 1e-4 of the plain
+    recursion normwise (or twice the library's distance)."""
+    rng = np.random.RandomState(B * n)
+    Ks = torch.stack([_path_gram(rng, n, 0.05, cuda) for _ in range(B)])
+    Ks[1, n // 2, n // 2] = -1.0
+    before = hk.cholesky_batched.launches
+    L = hk.cholesky_batched(Ks)
+    torch.cuda.synchronize()
+    assert hk.cholesky_batched.launches == before + 1
+    fin = torch.isfinite(L).all(-1).all(-1).tolist()
+    assert fin == [i != 1 for i in range(B)]
+    keep = [i for i in range(B) if i != 1]
+    ref, lib = hk.cholesky_batched_plain(Ks[keep]), torch.linalg.cholesky(Ks[keep])
+    norm = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    assert norm(L[keep], ref) <= max(1e-4, 2.0 * norm(lib, ref))
+    with pytest.raises(ValueError):
+        hk.cholesky_batched(Ks[0])
+
+
+def _large_n_state(device, max_obs, s=0.05, dtype="float32"):
+    from tpubq_torch.models import bq as bqm
+
+    rng = np.random.RandomState(0)
+    x = np.sort(rng.uniform(-2.2, 2.2, max_obs - 12))
+    l = np.exp(-0.5 * (x - 0.2) ** 2 / 0.25) / np.sqrt(2 * np.pi * 0.25) + 1e-3
+    opts = BQOptions(n_candidate=12, candidate_thresh=1e-3, max_obs=max_obs, dtype=dtype)
+    st = bqm.init_state(x, l, opts, params_tl=PARAMS_TL, params_l=PARAMS_L, s_tl=s, s_l=s, device=device)
+    return st, opts
+
+
+def test_large_n_refit_and_fast_step_go_through_the_kernels(cuda):
+    """At max_obs 256 (the log-GP 256 rows, the linear GP 268): a full refit
+    launches gaussian_gram 3 times, cholesky_blocked twice and
+    tri_solve_blocked six times (alpha forward and back, and L⁻¹, per GP); a
+    fast incremental step launches gaussian_gram 4 times, cholesky_blocked
+    once (the linear GP's fresh factor) and tri_solve_blocked five times (the
+    bordered row, and each GP's alpha forward and back)."""
+    from tpubq_torch.models import acquire as acq, incremental as inc
+
+    st, opts = _large_n_state(cuda, 256)
+    wrappers = (hk.gaussian_gram, hk.cholesky_blocked, hk.tri_solve_blocked)
+    counts = lambda: [w.launches for w in wrappers]  # noqa: E731
+    n_s, n_sc = opts.max_obs, opts.max_nsc
+    xa = float(st.x_s[100, 0] + st.x_s[101, 0]) / 2.0
+    c0 = counts()
+    full = acq.add_observation(st, opts, [xa], 0.3)
+    c1 = counts()
+    fast = inc.add_observation_fast(st, opts, [xa], 0.3)
+    c2 = counts()
+    assert [b - a for a, b in zip(c0, c1)] == [
+        3, hk.cholesky_blocked_launches(n_s) + hk.cholesky_blocked_launches(n_sc),
+        3 * (hk.tri_solve_blocked_launches(n_s) + hk.tri_solve_blocked_launches(n_sc))]
+    assert [b - a for a, b in zip(c1, c2)] == [
+        4, hk.cholesky_blocked_launches(n_sc),
+        3 * hk.tri_solve_blocked_launches(n_s) + 2 * hk.tri_solve_blocked_launches(n_sc)]
+    zm = [float(acq.Z_mean(s_, opts)) for s_ in (full, fast)]
+    assert abs(zm[0] - zm[1]) <= 1e-4 * abs(zm[0])
+
+
+def test_esm_scores_a_state_above_the_fused_kernels_budget(cuda):
+    """max_obs 2048 (2,060 rows) exceeds esm_fused's shared memory: the state
+    is scored by the plain route (its cross-Grams on gaussian_gram) and held
+    to the CPU's float32 scores at 1e-4 of the largest score."""
+    from tpubq_torch.models import acquire as acq
+
+    bq = _testbed_bq(cuda, max_obs=2048)
+    cpu = _testbed_bq("cpu", max_obs=2048)
+    grid = np.linspace(-4.0, 4.0, 2001)
+    e0 = hk.esm_fused.launches
+    got = torch.as_tensor(bq.expected_squared_mean(grid))  # esm_fused raised ValueError here before
+    assert hk.esm_fused.launches == e0
+    assert acq.esm_route(bq.state, bq.options) == "plain"
+    g0 = hk.gaussian_gram.launches
+    bq.expected_squared_mean(grid)
+    assert hk.gaussian_gram.launches > g0  # the plain scorer's cross-Grams
+    want = torch.as_tensor(cpu.expected_squared_mean(grid))
+    off = (got - want).abs() > 1e-4 * float(want.abs().max())
+    assert int(off.sum()) <= 2

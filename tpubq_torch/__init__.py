@@ -1,14 +1,17 @@
 """tpubq_torch — the PyTorch / CUDA port of tpubq's Bayesian Quadrature.
 
-The serving, fitting and fleet slices of the JAX package (``tpubq``), ported
-to PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and
-an exp-linearized GP on the likelihood, multi-restart hyperparameter fitting,
-``Z_mean``/``Z_var``, expected-squared-mean scoring,
-``choose_next``/``add_observation``, hyperparameter marginalization, and the
-fleet (``BQFleet``: B independent problems advanced together), for the
-gaussian kernel. Five kernels are written by hand for Hopper (sm_90a) in
-``csrc/``: the fused ESM scorer, the batched Cholesky, the fused
-MLL-and-gradient of the fit and the two halves of the fleet scorer.
+The serving, fitting, fleet and large-max_obs slices of the JAX package
+(``tpubq``), ported to PyTorch: the Osborne-style BQ estimator with a GP on
+the log-likelihood and an exp-linearized GP on the likelihood, multi-restart
+hyperparameter fitting, ``Z_mean``/``Z_var``, expected-squared-mean scoring,
+``choose_next``/``add_observation`` and the active loop (full refit or
+incremental updates), hyperparameter marginalization, and the fleet
+(``BQFleet``: B independent problems advanced together), for the gaussian
+kernel. Nine kernels are written by hand for Hopper (sm_90a) in ``csrc/``,
+one for each Pallas kernel of the JAX package: the fused ESM scorer, the two
+batched Choleskys, the fused MLL-and-gradient of the fit, the two halves of
+the fleet scorer, the gaussian Gram, and the blocked Cholesky and triangular
+solve of one large matrix.
 
 The entry points (``BQ``, ``BQFleet``, ``utils.convert``) run on the CUDA card unless the
 caller passes ``device="cpu"``, and raise where no card is there; the

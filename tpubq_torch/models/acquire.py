@@ -13,10 +13,13 @@ and under the log-GP posterior tl_a ~ N(m_a, c_a), ℓ = γ(e^{tl} − 1):
 Degenerate x_a (within candidate_thresh of a live point, or γ_s below its
 noise floor) score Z_mean².
 
-Dispatch: float32 scores with the fused ``esm_fused`` kernel (on a CUDA
-device; its plain twin on the CPU). Eager PyTorch has no fuser, so the plain
-path below would write several (nsc × G) intermediates to device memory per
-sweep. float64 stays on the plain path (the cho_solve parity contract).
+Dispatch (``esm_route``, from shapes before any launch): float32 scores
+with the fused ``esm_fused`` kernel (on a CUDA device; its plain twin on the
+CPU) wherever ``esm_fused_supported`` covers the state's sizes. Eager
+PyTorch has no fuser, so the plain path below writes several (nsc × G)
+intermediates to device memory per sweep; it scores the larger float32
+states (about max_obs ≥ 1,480 at d = 1), as the JAX package scores every
+size, and float64 (the cho_solve parity contract).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from tpubq_torch.ops.kernels import get_kernel
 from tpubq_torch.utils.options import BQOptions
 
 __all__ = [
+    "esm_route",
     "expected_squared_mean",
     "expected_squared_mean_xla",
     "expected_Z_var",
@@ -189,10 +193,21 @@ def esm_fused_inputs(state: BQState, opts: BQOptions, x_a):
             state.obs_mask.to(dtype), gp_tl.Kinv.contiguous(), gp_tl.alpha.contiguous())
 
 
+def esm_route(state: BQState, opts: BQOptions) -> str:
+    """The scorer ``expected_squared_mean`` takes for one problem:
+    "esm_fused" for a float32 gaussian state whose sizes ``esm_fused``
+    covers, else "plain" (``expected_squared_mean_xla``)."""
+    NP, NP2 = state.x_sc.shape[-2], state.x_s.shape[-2]
+    if (state.x_s.dtype == torch.float32 and opts.kernel == "gaussian"
+            and hk.esm_fused_supported(NP, NP2, opts.dim)):
+        return "esm_fused"
+    return "plain"
+
+
 def expected_squared_mean(state: BQState, opts: BQOptions, x_a) -> torch.Tensor:
     """ESM scores for a batch of locations x_a: (na, d) → (na,)."""
     x_a = as_points(x_a, opts.dim, state.x_s.dtype, state.x_s.device)
-    if state.x_s.dtype == torch.float32 and opts.kernel == "gaussian" and opts.dim <= 3:
+    if esm_route(state, opts) == "esm_fused":
         return hk.esm_fused(*esm_fused_inputs(state, opts, x_a))
     return expected_squared_mean_xla(state, opts, x_a)
 
@@ -241,17 +256,38 @@ def add_observation(state: BQState, opts: BQOptions, x_a, l_a) -> BQState:
 
 
 def run_active_loop(state: BQState, opts: BQOptions, loglik_fn, x_grid, n_steps: int,
-                    hyper_samples=None):
-    """Closed choose → evaluate → add loop, with a full refit per step.
+                    hyper_samples=None, incremental="auto", refresh_every: int = 16,
+                    record_moments: bool = True):
+    """Closed choose → evaluate → add loop.
 
     ``loglik_fn`` maps a (d,) tensor to the likelihood there. Returns
-    (final_state, (x_next (n_steps, d), Z_mean (n_steps,), Z_var (n_steps,))).
+    (final_state, (x_next (n_steps, d), Z_mean (n_steps,), Z_var (n_steps,))),
+    or (final_state, x_next) with ``record_moments=False`` (the same final
+    state, without the per-step V[Z] quadrature).
+
+    ``incremental``: True adds each observation by the exact incremental
+    updates of ``models.incremental.add_observation_fast`` (with its full-refit
+    fallback and a fresh refit whenever the live count is a multiple of
+    ``refresh_every``), False by the full refit; ``"auto"`` takes the
+    incremental path where ``opts.max_obs`` lies inside the window measured
+    on the card (``incremental.INCREMENTAL_AUTO_WINDOW``).
     """
+    from tpubq_torch.models.incremental import add_observation_fast, incremental_auto
+
+    if incremental == "auto":
+        incremental = incremental_auto(opts.max_obs)
     xs, zms, zvs = [], [], []
     for _ in range(n_steps):
         x_next, _scores = choose_next(state, opts, x_grid, hyper_samples)
-        state = add_observation(state, opts, x_next, loglik_fn(x_next))
+        l_next = loglik_fn(x_next)
+        if incremental:
+            state = add_observation_fast(state, opts, x_next, l_next, refresh_every)
+        else:
+            state = add_observation(state, opts, x_next, l_next)
         xs.append(x_next)
-        zms.append(Z_mean(state, opts))
-        zvs.append(Z_var(state, opts))
+        if record_moments:
+            zms.append(Z_mean(state, opts))
+            zvs.append(Z_var(state, opts))
+    if not record_moments:
+        return state, torch.stack(xs)
     return state, (torch.stack(xs), torch.stack(zms), torch.stack(zvs))

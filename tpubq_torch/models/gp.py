@@ -69,7 +69,11 @@ def gp_fit(
     ``need_kinv`` forms the explicit K⁻¹ (float32 scoring reads it); eager
     PyTorch eliminates no dead code, so paths that never read it (the
     marginalize batch) pass False and skip the n-column solve. The alpha and
-    K⁻¹ solves are separate, as in the JAX package.
+    K⁻¹ solves are separate, as in the JAX package. One float32 problem on
+    the card runs on the hand-written kernels: the Gram on ``gaussian_gram``,
+    the ladder on ``cholesky_blocked``, alpha by a forward and a flipped back
+    substitution and K⁻¹ = YᵀY from Y = L⁻¹, all three on
+    ``tri_solve_blocked`` (``linalg``).
     """
     theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
     s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
@@ -77,10 +81,7 @@ def gp_fit(
     L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
     ym = torch.where(mask, y, torch.zeros_like(y))
     alpha = linalg.chol_solve_vec(L, ym)
-    Kinv = None
-    if need_kinv:
-        eye = torch.eye(x.shape[-2], dtype=x.dtype, device=x.device)
-        Kinv = linalg.chol_solve(L, eye.expand_as(L))
+    Kinv = linalg.chol_inverse(L) if need_kinv else None
     alpha = torch.where(ok[..., None], alpha, torch.full_like(alpha, float("nan")))
     return GPState(theta, s, x, ym, mask, L, alpha, Kinv, jit_used, ok)
 

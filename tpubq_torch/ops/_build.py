@@ -22,7 +22,8 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu", "esm_fleet_l.cu", "esm_fleet_tl.cu")
+SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu", "esm_fleet_l.cu", "esm_fleet_tl.cu",
+           "gaussian_gram.cu", "chol_blocked.cu", "tri_solve_blocked.cu")
 #: Headers the sources include (hashed with them, never compiled alone).
 HEADERS = ("chol_columns.cuh", "esm_fleet_common.cuh")
 NVCC_FLAGS = (
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ip = ctypes.POINTER(ctypes.c_int)
 _SIG = {
     "tpubq_esm_fused": (
         [_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p],
@@ -43,6 +45,10 @@ _SIG = {
         _i,
     ),
     "tpubq_esm_fleet_tl": ([_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p, _p], _i),
+    "tpubq_gaussian_gram": ([_p, _p, _p, _i, _i, _i, _p, _p], _i),
+    "tpubq_chol_blocked": ([_p, _p, _p, _p, _p, _i, _ip, _p], _i),
+    "tpubq_tri_solve_blocked": ([_p, _p, _p, _p, _i, _i, _ip, _p], _i),
+    "tpubq_chol_batched": ([_p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels and their plain PyTorch twins.
 
-Five kernels, each the port of a TPU Pallas kernel of the JAX package:
+Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
 
 * ``esm_fused`` (``csrc/esm_fused.cu``) ← ``tpubq/ops/pallas_kernels.py``
   ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``.
@@ -14,18 +14,30 @@ Five kernels, each the port of a TPU Pallas kernel of the JAX package:
   ``esm_fleet_tl`` (``csrc/esm_fleet_tl.cu``) ← ``esm_fleet_tl``: the two
   halves of the fleet scorer behind ``BQFleet.choose_next``, B problems × G
   shared grid points per launch.
+* ``gaussian_gram`` (``csrc/gaussian_gram.cu``) ← ``gaussian_gram``: the
+  gaussian Gram of one kernel-parameter vector, behind ``kernels.gaussian_K``.
+* ``cholesky_blocked`` (``csrc/chol_blocked.cu``) ← ``cholesky_blocked`` and
+  ``tri_solve_blocked`` (``csrc/tri_solve_blocked.cu``) ←
+  ``tri_solve_blocked``: the factor and the triangular solves of one large
+  matrix, behind the unbatched float32 refits (``linalg``).
+* ``cholesky_batched`` (``csrc/chol_batch.cu``) ← ``cholesky_batched``: the
+  batched factorization above ``chol_batch``'s shared-memory limit.
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises. Each wrapper counts its kernel
-launches in a plain integer attribute (``esm_fused.launches``,
-``chol_batch.launches``, ``mll_grad_batched.launches``,
-``esm_fleet_l.launches``, ``esm_fleet_tl.launches``), incremented where the
-kernel is launched and nowhere else. Nothing here imports a CUDA toolchain at import time: the
-library is built by ``_build`` on the first launch.
+tensor it launches the kernel or raises. Each wrapper counts its CUDA kernel
+launches in a plain integer attribute (``esm_fused.launches``, …,
+``tri_solve_blocked.launches``), incremented where the kernel is launched and
+nowhere else; ``cholesky_blocked`` and ``tri_solve_blocked`` make several
+launches per call (``cholesky_blocked_launches``,
+``tri_solve_blocked_launches``). Callers choose a kernel route from shapes,
+dtype and device before any launch (``kernel_route``). Nothing here imports
+a CUDA toolchain at import time: the library is built by ``_build`` on the
+first launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -48,6 +60,19 @@ __all__ = [
     "esm_fleet_tl",
     "esm_fleet_tl_plain",
     "esm_fleet_tl_supported",
+    "on_card",
+    "kernel_route",
+    "gaussian_gram",
+    "gaussian_gram_plain",
+    "gaussian_gram_vjp",
+    "cholesky_blocked",
+    "cholesky_blocked_plain",
+    "cholesky_blocked_launches",
+    "tri_solve_blocked",
+    "tri_solve_blocked_plain",
+    "tri_solve_blocked_launches",
+    "cholesky_batched",
+    "cholesky_batched_plain",
 ]
 
 #: Shared memory one block may use on H100 (227 KB).
@@ -111,6 +136,18 @@ def mll_grad_supported(n: int) -> bool:
     Gram and its inverse factor, two n × n float32 matrices, within the
     227 KB of shared memory of one block — n ≤ 167."""
     return n >= 1 and _mll_smem_bytes(n) <= SMEM_LIMIT
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA device: the one device test of the routes."""
+    return t.is_cuda
+
+
+def kernel_route(*tensors: torch.Tensor) -> bool:
+    """Whether these tensors go to a hand-written kernel: float32, on a CUDA
+    device, and none of them needs a gradient (the kernels other than
+    ``gaussian_gram`` have no backward). Decided before any launch."""
+    return all(t.dtype == torch.float32 and on_card(t) and not t.requires_grad for t in tensors)
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
@@ -237,24 +274,28 @@ esm_fused.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _chol_columns_plain(Ks: torch.Tensor, clamp_pivot: bool) -> torch.Tensor:
+def _chol_columns_plain(Ks: torch.Tensor, clamp_pivot: bool, report_clamps: bool = False):
     """The right-looking column recursion of the kernels in torch ops.
     ``clamp_pivot`` takes sqrt(max(c_jj, tiny)) with a NaN c_jj kept
-    (``mll_grad``'s contract) instead of sqrt(c_jj) (``chol_batch``'s)."""
+    (``mll_grad``'s contract) instead of sqrt(c_jj) (``chol_batch``'s).
+    ``report_clamps`` also returns, per matrix, whether a pivot was below
+    tiny or NaN → (L, clamped (B,) bool)."""
     B, n, _ = Ks.shape
     work = Ks.clone()
     L = torch.zeros_like(Ks)
     rows = torch.arange(n, device=Ks.device)[None, :]
     tiny = torch.finfo(Ks.dtype).tiny
+    clamped = torch.zeros(B, dtype=torch.bool, device=Ks.device)
     for j in range(n):
         c = work[:, j, j]
         if clamp_pivot:
+            clamped = clamped | ~(c >= tiny)
             c = torch.where(c < tiny, torch.full_like(c, tiny), c)
         d = torch.sqrt(c)[:, None]  # (B, 1)
         l = torch.where(rows > j, work[:, :, j] / d, torch.zeros_like(work[:, :, j]))
         L[:, :, j] = l + torch.where(rows == j, d, torch.zeros_like(d))
         work = work - l[:, :, None] * l[:, None, :]
-    return L
+    return (L, clamped) if report_clamps else L
 
 
 def chol_batch_plain(Ks: torch.Tensor) -> torch.Tensor:
@@ -628,3 +669,261 @@ def esm_fleet_tl(h2, w2inv, grid, xs, ms, Kinv, alpha):
 
 
 esm_fleet_tl.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gaussian_gram
+# ---------------------------------------------------------------------------
+
+
+def gaussian_gram_plain(theta, x1, x2):
+    """h²·exp(−½ Σ_k (x1_k/w_k − x2_k/w_k)²) in torch ops (same arguments as
+    ``gaussian_gram``, any float dtype): the oracle of the kernel and its CPU
+    path, with the operations of ``kernels.gaussian_K`` in the same order."""
+    h, w = theta[0], theta[1:]
+    diff = (x1 / w)[:, None, :] - (x2 / w)[None, :, :]
+    return (h * h) * torch.exp(-0.5 * (diff**2).sum(-1))
+
+
+def gaussian_gram_vjp(theta, x1, x2, K, G):
+    """Closed-form backward of the Gram → (∂θ, ∂x1, ∂x2) of Σ G ∘ K, from
+    dK/dh = 2K/h, dK/dw_k = K (x1_k − x2_k)²/w_k³ and
+    dK/dx1_k = −K (x1_k − x2_k)/w_k² = −dK/dx2_k."""
+    h, w = theta[0], theta[1:]
+    GK = G * K
+    diff = x1[:, None, :] - x2[None, :, :]  # (n1, n2, d)
+    g_h = (2.0 / h) * GK.sum()
+    g_w = (GK[..., None] * diff * diff).sum((0, 1)) / (w * w * w)
+    gx = GK[..., None] * diff / (w * w)
+    return torch.cat([g_h[None], g_w]), -gx.sum(1), gx.sum(0)
+
+
+def _gaussian_gram_launch(theta, x1, x2):
+    n1, d = x1.shape
+    n2 = x2.shape[0]
+    K = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
+    if n1 == 0 or n2 == 0:
+        return K
+    from tpubq_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(x1.device):
+        err = lib.tpubq_gaussian_gram(theta.data_ptr(), x1.data_ptr(), x2.data_ptr(), n1, n2, d,
+                                      K.data_ptr(), _stream_ptr(x1))
+        gaussian_gram.launches += 1
+    _check(err, "gaussian_gram")
+    return K
+
+
+class _GaussianGram(torch.autograd.Function):
+    """The kernel as an autograd node, with the closed-form backward of
+    ``gaussian_gram_vjp`` in torch ops: ``log_mll`` / ``dlog_mll`` keep their
+    gradients through it."""
+
+    @staticmethod
+    def forward(ctx, theta, x1, x2):
+        K = _gaussian_gram_launch(theta, x1, x2)
+        ctx.save_for_backward(theta, x1, x2, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, G):
+        theta, x1, x2, K = ctx.saved_tensors
+        g_theta, g_x1, g_x2 = gaussian_gram_vjp(theta, x1, x2, K, G)
+        need = ctx.needs_input_grad
+        return (g_theta if need[0] else None, g_x1 if need[1] else None, g_x2 if need[2] else None)
+
+
+def gaussian_gram(theta, x1, x2):
+    """Gaussian Gram of one parameter vector → (n1, n2).
+
+    Shapes: ``theta`` (1 + d,) = [h, w_1..w_d]; ``x1`` (n1, d); ``x2``
+    (n2, d); float32, contiguous, one device; n1 ≤ 524,280 rows per launch.
+    Differentiable in all three (closed-form backward).
+    """
+    if x1.ndim != 2 or x2.ndim != 2 or x1.shape[1] != x2.shape[1]:
+        raise ValueError(f"gaussian_gram needs (n1, d) and (n2, d), got {tuple(x1.shape)}, {tuple(x2.shape)}")
+    d = x1.shape[1]
+    if tuple(theta.shape) != (1 + d,):
+        raise ValueError(f"gaussian_gram: theta has shape {tuple(theta.shape)}, expected {(1 + d,)}")
+    _check_f32("gaussian_gram", x1.device, theta=theta, x1=x1, x2=x2)
+    if x1.device.type == "cpu":
+        return gaussian_gram_plain(theta, x1, x2)
+    if x1.device.type != "cuda":
+        raise ValueError(f"gaussian_gram: unsupported device {x1.device}")
+    if x1.shape[0] > 8 * 65535:
+        raise ValueError(f"gaussian_gram: at most {8 * 65535} rows per launch, got {x1.shape[0]}")
+    return _GaussianGram.apply(theta, x1, x2)
+
+
+gaussian_gram.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# cholesky_blocked / tri_solve_blocked (one large matrix)
+# ---------------------------------------------------------------------------
+
+#: Panel width of the blocked kernels (the TPU kernels' default block).
+PANEL = 128
+
+
+def _panels(n: int) -> int:
+    return (n + PANEL - 1) // PANEL
+
+
+def cholesky_blocked_launches(n: int) -> int:
+    """CUDA launches of one ``cholesky_blocked`` call on an n × n matrix: per
+    panel the diagonal block, and below all but the last the panel product
+    and the trailing update — 3·⌈n/128⌉ − 2."""
+    return 3 * _panels(n) - 2 if n > 0 else 0
+
+
+def tri_solve_blocked_launches(n: int) -> int:
+    """CUDA launches of one ``tri_solve_blocked`` call with n rows: the
+    diagonal-block inverses, then one per 128-row block — 1 + ⌈n/128⌉."""
+    return 1 + _panels(n) if n > 0 else 0
+
+
+def cholesky_batched_plain(Ks: torch.Tensor) -> torch.Tensor:
+    """``cholesky_batched`` in torch ops: the column recursion with the pivot
+    clamped at tiny, and NaN in every matrix where a pivot was clamped."""
+    L, clamped = _chol_columns_plain(Ks, clamp_pivot=True, report_clamps=True)
+    return torch.where(clamped[:, None, None], torch.full_like(L, float("nan")), L)
+
+
+def cholesky_blocked_plain(A: torch.Tensor) -> torch.Tensor:
+    """``cholesky_blocked`` in torch ops (the unblocked column recursion with
+    the clamped pivot, NaN where a pivot was clamped)."""
+    return cholesky_batched_plain(A[None])[0]
+
+
+def _check_square(name: str, A: torch.Tensor, ndim: int) -> None:
+    if A.ndim != ndim or A.shape[-1] != A.shape[-2]:
+        want = "(N, N)" if ndim == 2 else "(B, N, N)"
+        raise ValueError(f"{name} needs a {want} matrix, got {tuple(A.shape)}")
+
+
+def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of one (N, N) float32 matrix, exact zeros above
+    the diagonal; only the lower triangle is read.
+
+    Right-looking blocked factorization with 128-wide panels
+    (``cholesky_blocked_launches(N)`` CUDA launches). The pivot is clamped at
+    tiny and a clamped factor comes back NaN: a matrix that is not positive
+    definite gives a NaN factor, the contract of the library Cholesky that
+    the jitter ladder reads. No host sync.
+    """
+    _check_square("cholesky_blocked", A, 2)
+    _check_f32("cholesky_blocked", A.device, A=A)
+    if A.device.type == "cpu":
+        return cholesky_blocked_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"cholesky_blocked: unsupported device {A.device}")
+    N = A.shape[0]
+    L = torch.empty_like(A)
+    if N == 0:
+        return L
+    from tpubq_torch.ops import _build
+
+    work = torch.empty_like(A)
+    Yd = torch.empty((PANEL, PANEL), dtype=torch.float32, device=A.device)
+    flag = torch.empty((1,), dtype=torch.int32, device=A.device)
+    launches = ctypes.c_int(0)
+    lib = _build.library()
+    with torch.cuda.device(A.device):
+        err = lib.tpubq_chol_blocked(A.data_ptr(), work.data_ptr(), L.data_ptr(), Yd.data_ptr(),
+                                     flag.data_ptr(), N, ctypes.byref(launches), _stream_ptr(A))
+        cholesky_blocked.launches += launches.value
+    _check(err, "cholesky_blocked")
+    return torch.where(flag.bool(), torch.full_like(L, float("nan")), L)
+
+
+cholesky_blocked.launches = 0
+
+
+def tri_solve_blocked_plain(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """X = L⁻¹R by the library's triangular solve (lower triangle of L read):
+    the oracle of the kernel and its CPU path."""
+    return torch.linalg.solve_triangular(L, R, upper=False)
+
+
+def tri_solve_blocked(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """X = L⁻¹R for a lower-triangular (N, N) ``L`` and (N, M) ``R``, float32
+    and contiguous on one device; only the lower triangle of L is read.
+
+    Blocked forward substitution over 128-row blocks
+    (``tri_solve_blocked_launches(N)`` CUDA launches). A back substitution
+    with an upper-triangular U is the forward one on J U J (J reverses the
+    index order): ``linalg.tri_solve(..., lower=False)``.
+    """
+    _check_square("tri_solve_blocked", L, 2)
+    if R.ndim != 2 or R.shape[0] != L.shape[0]:
+        raise ValueError(f"tri_solve_blocked: R must be ({L.shape[0]}, M), got {tuple(R.shape)}")
+    _check_f32("tri_solve_blocked", L.device, L=L, R=R)
+    if L.device.type == "cpu":
+        return tri_solve_blocked_plain(L, R)
+    if L.device.type != "cuda":
+        raise ValueError(f"tri_solve_blocked: unsupported device {L.device}")
+    N, M = R.shape
+    X = torch.empty_like(R)
+    if N == 0 or M == 0:
+        return X
+    from tpubq_torch.ops import _build
+
+    Yd = torch.empty((_panels(N), PANEL, PANEL), dtype=torch.float32, device=L.device)
+    launches = ctypes.c_int(0)
+    lib = _build.library()
+    with torch.cuda.device(L.device):
+        err = lib.tpubq_tri_solve_blocked(L.data_ptr(), R.data_ptr(), X.data_ptr(), Yd.data_ptr(), N, M,
+                                          ctypes.byref(launches), _stream_ptr(L))
+        tri_solve_blocked.launches += launches.value
+    _check(err, "tri_solve_blocked")
+    return X
+
+
+tri_solve_blocked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# cholesky_batched (a stack of matrices of any size)
+# ---------------------------------------------------------------------------
+
+_CHOL_BATCHED_THREADS = 1024
+
+
+def cholesky_batched(Ks: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of a (B, N, N) float32 stack, exact zeros above
+    the diagonal; only the lower triangles are read.
+
+    One thread block per matrix runs the column recursion with the pivot
+    clamped at tiny; the matrix sits in shared memory for N ≤ 240
+    (``chol_batch_supported``) and in device memory above. A matrix with a
+    clamped pivot comes back NaN, in its own entry only. No host sync.
+    """
+    _check_square("cholesky_batched", Ks, 3)
+    _check_f32("cholesky_batched", Ks.device, Ks=Ks)
+    if Ks.device.type == "cpu":
+        return cholesky_batched_plain(Ks)
+    if Ks.device.type != "cuda":
+        raise ValueError(f"cholesky_batched: unsupported device {Ks.device}")
+    B, n, _ = Ks.shape
+    L = torch.empty_like(Ks)
+    if B == 0 or n == 0:
+        return L
+    if B > 2**31 - 1:
+        raise ValueError(f"cholesky_batched: too many matrices ({B})")
+    in_shared = chol_batch_supported(n)
+    smem = 4 * (2 * n + (n * n if in_shared else 0))
+    flags = torch.empty((B,), dtype=torch.int32, device=Ks.device)
+    from tpubq_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(Ks.device):
+        err = lib.tpubq_chol_batched(Ks.data_ptr(), L.data_ptr(), flags.data_ptr(), B, n, int(in_shared),
+                                     _CHOL_BATCHED_THREADS, smem, _stream_ptr(Ks))
+        cholesky_batched.launches += 1
+    _check(err, "cholesky_batched")
+    return torch.where(flags.bool()[:, None, None], torch.full_like(L, float("nan")), L)
+
+
+cholesky_batched.launches = 0

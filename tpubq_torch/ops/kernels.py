@@ -3,12 +3,17 @@
 ``theta = [h, w_1, ..., w_d]`` with k(a, b) = h² exp(−½ Σ_j ((a_j − b_j)/w_j)²).
 Counterpart of ``tpubq/ops/kernels.py``. Every function broadcasts over
 leading batch axes: ``theta`` (..., 1+d), ``x1`` (..., n1, d), ``x2`` (..., n2, d)
-→ (..., n1, n2).
+→ (..., n1, n2). A float32 Gram on a CUDA device with one parameter vector
+and unbatched inputs is the hand-written ``gaussian_gram`` kernel; Grams with
+batch axes (θ rows, the fleet) stay plain torch, as the JAX package computes
+them through XLA.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpubq_torch.ops import hopper_kernels as hk
 
 
 def sqdist(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -20,6 +25,9 @@ def sqdist(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gaussian_K(theta: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Gaussian (RBF) Gram matrix."""
+    if (theta.ndim == 1 and x1.ndim == 2 and x2.ndim == 2
+            and all(t.dtype == torch.float32 and hk.on_card(t) for t in (theta, x1, x2))):
+        return hk.gaussian_gram(theta.contiguous(), x1.contiguous(), x2.contiguous())
     h = theta[..., 0]
     w = theta[..., 1:]
     return (h * h)[..., None, None] * torch.exp(-0.5 * sqdist(x1, x2, w))

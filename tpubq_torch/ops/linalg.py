@@ -6,6 +6,15 @@ an optional leading batch axis. A failed factorization is a NaN factor (the
 contract of ``jnp.linalg.cholesky`` that the ladder's finiteness checks
 consume); ``torch.linalg.cholesky_ex`` reports failure through ``info``
 instead, so ``_lib_cholesky`` turns a non-zero ``info`` into NaN.
+
+Routes for float32 tensors on a CUDA device that need no gradient
+(``hopper_kernels.kernel_route``), chosen from shapes before any launch:
+the unbatched jitter ladder factors with ``cholesky_blocked``; a batched
+factorization goes to ``chol_batch`` (n ≤ 240) or ``cholesky_batched``
+(above); a triangular solve or Cholesky solve under one unbatched factor goes
+to ``tri_solve_blocked``, with the right-hand sides of every batch entry as
+its columns, and a back substitution as a forward one on the flipped factor.
+float64 and batched factors stay with the library.
 """
 
 from __future__ import annotations
@@ -17,10 +26,13 @@ from tpubq_torch.ops import hopper_kernels as hk
 __all__ = [
     "pad_gram",
     "cholesky_fixed",
+    "posdef_cholesky",
     "posdef_cholesky_batched",
     "jitter_cholesky",
     "chol_solve",
     "tri_solve",
+    "chol_solve_vec",
+    "chol_inverse",
     "masked_logdet",
 ]
 
@@ -70,16 +82,23 @@ def cholesky_fixed(K: torch.Tensor, mask: torch.Tensor, jitter: float = 1e-12) -
 def posdef_cholesky_batched(A: torch.Tensor) -> torch.Tensor:
     """Cholesky of a (BT, n, n) stack of identity-padded Grams.
 
-    A float32 stack on a CUDA device with ``chol_batch_supported(n)`` goes to
-    the hand-written ``chol_batch`` kernel (the port of the TPU's
-    ``cholesky_batch_major``), at any BT: on the H100 it beats the library
-    from BT = 2 up. Everything else goes to the library Cholesky, where the
-    JAX package sends it to ``jnp.linalg.cholesky``. Either way a matrix that
-    is not positive definite gets NaN in its own entry only.
+    A float32 stack on a CUDA device goes to a hand-written kernel at any BT:
+    ``chol_batch`` (the port of the TPU's ``cholesky_batch_major``; on the
+    H100 it beats the library from BT = 2 up) where ``chol_batch_supported(n)``,
+    ``cholesky_batched`` above that. float64 goes to the library Cholesky,
+    where the JAX package sends it to ``jnp.linalg.cholesky``. Either way a
+    matrix that is not positive definite gets NaN in its own entry only.
     """
-    if A.dtype == torch.float32 and A.is_cuda and hk.chol_batch_supported(A.shape[-1]):
-        return hk.chol_batch(A)
+    if hk.kernel_route(A):
+        return hk.chol_batch(A) if hk.chol_batch_supported(A.shape[-1]) else hk.cholesky_batched(A)
     return _lib_cholesky(A)
+
+
+def posdef_cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Cholesky of one (n, n) matrix, NaN where it is not positive definite:
+    ``cholesky_blocked`` on the kernel route, the library elsewhere (the
+    JAX package's ``posdef_cholesky`` for one matrix)."""
+    return hk.cholesky_blocked(A) if hk.kernel_route(A) else _lib_cholesky(A)
 
 
 def _finite_diag(L: torch.Tensor) -> torch.Tensor:
@@ -123,11 +142,11 @@ def jitter_cholesky(K: torch.Tensor, mask: torch.Tensor, base_jitter: float = 0.
         ) * scale
         Kp0 = Kp if base_jitter < 1e-8 else Kp + eye_live * j0[..., None, None]
         if K.ndim == 2:
-            L0 = _lib_cholesky(Kp0)
+            L0 = posdef_cholesky(Kp0)
             ok0 = _finite_diag(L0)
             if bool(ok0):
                 return L0, j0, ok0
-            L1 = _lib_cholesky(Kp0 + eye_live * (j1 - j0))
+            L1 = posdef_cholesky(Kp0 + eye_live * (j1 - j0))
             return L1, j1, _finite_diag(L1)
         K1 = Kp0 + eye_live * (j1 - j0)[..., None, None]
         Ks = torch.stack(torch.broadcast_tensors(Kp0, K1), dim=-3)  # (..., 2, n, n)
@@ -156,20 +175,47 @@ def jitter_cholesky(K: torch.Tensor, mask: torch.Tensor, base_jitter: float = 0.
     return L, ladder[rung] * scale, ok
 
 
+def _tri_solve_kernel(T: torch.Tensor, b: torch.Tensor, lower: bool) -> torch.Tensor:
+    """``tri_solve`` through ``tri_solve_blocked`` for one (n, n) factor: the
+    (..., n, k) right-hand sides become the columns of one (n, Π(...)·k)
+    block. An upper-triangular T is solved forward on J T J (J reverses the
+    index order): T x = b ⇔ (J T J)(J x) = J b."""
+    n = T.shape[-1]
+    R = b.movedim(-2, 0).reshape(n, -1)
+    if lower:
+        X = hk.tri_solve_blocked(T.contiguous(), R.contiguous())
+    else:
+        X = hk.tri_solve_blocked(T.flip(-2, -1).contiguous(), R.flip(0).contiguous()).flip(0)
+    return X.reshape(n, *b.shape[:-2], b.shape[-1]).movedim(0, -2)
+
+
 def tri_solve(L: torch.Tensor, b: torch.Tensor, lower: bool = True) -> torch.Tensor:
-    """Triangular solve L x = b for b of shape (..., n, k); batch axes broadcast."""
+    """Triangular solve L x = b for b of shape (..., n, k); batch axes broadcast.
+    ``lower=False`` means L is upper triangular."""
+    if L.ndim == 2 and hk.kernel_route(L, b):
+        return _tri_solve_kernel(L, b, lower)
     return torch.linalg.solve_triangular(L, b, upper=not lower)
 
 
 def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve K x = b given K = L Lᵀ, for b of shape (..., n, k)."""
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return tri_solve(L.transpose(-1, -2), tri_solve(L, b), lower=False)
 
 
 def chol_solve_vec(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``chol_solve`` for vector right-hand sides b of shape (..., n)."""
     return chol_solve(L, b[..., None])[..., 0]
+
+
+def chol_inverse(L: torch.Tensor) -> torch.Tensor:
+    """K⁻¹ from its factor. On the kernel route with one factor: Y = L⁻¹ from
+    one ``tri_solve_blocked`` against the identity, and K⁻¹ = YᵀY (a plain
+    product); elsewhere ``chol_solve(L, I)``."""
+    eye = _eye(L)
+    if L.ndim == 2 and hk.kernel_route(L):
+        Y = tri_solve(L, eye)
+        return Y.transpose(-1, -2) @ Y
+    return chol_solve(L, eye.expand_as(L))
 
 
 def masked_logdet(L: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ before the final line):
               scorer against float64 at 28, 60 and 126 rows per problem; the
               large-N kernels (gaussian_gram, cholesky_blocked,
               tri_solve_blocked, cholesky_batched) at n = 44, 128, 300 and
-              1036, NaN confinement included.
+              1036, NaN confinement (a bad pivot past the first panel and
+              in the last one) and the solve's determinism included.
 3. main     — the f32 BQ path through the BQ facade on the card: init →
               fit_hypers (10 restarts × 150 Adam steps over the mll_grad
               kernel, both GPs) → Z moments → 10 × (choose_next over 10,000
@@ -1233,18 +1234,22 @@ def live_conditions(st64) -> dict:
 
 def check_large_kernels(dev) -> dict:
     """The four kernels of the large-N path against their plain versions at
-    n ∈ {44, 128, 300, 1036} (one and several 128-row panels, a ragged last
-    one), on Grams of the path's recipe at s = S_LARGE (κ up to ~1e5):
+    n ∈ {44, 128, 300, 1036} (one and several panels, a ragged last one), on
+    Grams of the path's recipe at s = S_LARGE (κ up to ~1e5):
 
     * gaussian_gram: (n, n) and (n, 1) at d = 1, (300, 512) at d = 3:
       max|Δ| ≤ GRAM_TOL·h²;
     * cholesky_blocked and cholesky_batched: backward error
       max|LLᵀ − A| / max|A| ≤ n·eps32, and within CHOL_NORM_TOL of the plain
-      recursion normwise or twice the library's own distance to it where that
-      is larger (two float32 factorizations of a κ ~ 1e5 matrix); a matrix
-      made indefinite comes back NaN, in its own entry of a stack only;
-    * tri_solve_blocked: (n, 1) and (n, n) = L⁻¹ against float64, within
-      max(1e-4, 2 × the library's own distance) normwise.
+      factor (cholesky_blocked's unblocked recursion, cholesky_batched's
+      panelled one) normwise or twice the library's own distance to it where
+      that is larger (two float32 factorizations of a κ ~ 1e5 matrix); a
+      matrix made indefinite comes back NaN, in its own entry of a stack only,
+      with its bad pivot past the first 64-wide panel and, from n = 128 up,
+      a second one in the last panel;
+    * tri_solve_blocked: (n, 1), (n, 3), (n, 100) and (n, n) = L⁻¹ against
+      float64, within max(1e-4, 2 × the library's own distance) normwise;
+      and at n = 1036 two calls on the same inputs give the same bits.
     """
     import torch
 
@@ -1269,23 +1274,29 @@ def check_large_kernels(dev) -> dict:
         chol.append(dict(n=n, finite=bool(torch.isfinite(L).all()), upper_zero=bool((torch.triu(L, 1) == 0).all()),
                          backward_err=norm(L64 @ L64.T, A), norm_err=norm(L, ref), library_norm_err=norm(lib, ref),
                          max_abs_err=float((L - ref).abs().max()), tol_backward=n * eps))
-        for M in (1, n):
+        for M in (1, 3, 100, n):
             R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
             X = hk.tri_solve_blocked(ref, R)
             torch.cuda.synchronize()
             X64 = torch.linalg.solve_triangular(ref.double(), R.double(), upper=False)
-            plain = hk.tri_solve_blocked_plain(ref, R)
-            tri.append(dict(n=n, M=M, norm_err_vs_f64=norm(X, X64), plain_norm_err_vs_f64=norm(plain, X64),
-                            max_abs_err=float((X - plain).abs().max())))
-        B = 16 if n <= 128 else (4 if n <= 300 else 2)
+            plain, lib = hk.tri_solve_blocked_plain(ref, R), torch.linalg.solve_triangular(ref, R, upper=False)
+            case = dict(n=n, M=M, norm_err_vs_f64=norm(X, X64), library_norm_err_vs_f64=norm(lib, X64),
+                        plain_norm_err_vs_f64=norm(plain, X64), max_abs_err=float((X - plain).abs().max()))
+            if n == LARGE_KERNEL_NS[-1]:
+                case["bit_identical_on_repeat"] = bool(torch.equal(X, hk.tri_solve_blocked(ref, R)))
+            tri.append(case)
+        B = 16 if n <= 128 else (4 if n <= 300 else 3)
         Ks = torch.stack([path_gram(rng, n, dev) for _ in range(B)])
-        Ks[1, n // 2, n // 2] = -1.0  # indefinite
+        bad = [1] if n <= 64 else [1, 2]
+        Ks[1, n // 2, n // 2] = -1.0  # indefinite: a pivot past the first panel from n = 128 up
+        if n > 64:
+            Ks[2, n - 2, n - 2] = -1.0  # and one in the last panel
         Lb = hk.cholesky_batched(Ks)
         torch.cuda.synchronize()
-        keep = [i for i in range(B) if i != 1]
+        keep = [i for i in range(B) if i not in bad]
         refb, libb = hk.cholesky_batched_plain(Ks[keep]), torch.linalg.cholesky(Ks[keep])
         Lk = Lb[keep].double()
-        batched.append(dict(B=B, n=n, in_shared_memory=hk.chol_batch_supported(n),
+        batched.append(dict(B=B, n=n, indefinite=bad, upper_zero=bool((torch.triu(Lb[keep], 1) == 0).all()),
                             finite=torch.isfinite(Lb).all(-1).all(-1).tolist(),
                             backward_err=norm(Lk @ Lk.transpose(1, 2), Ks[keep]), norm_err=norm(Lb[keep], refb),
                             library_norm_err=norm(libb, refb), max_abs_err=float((Lb[keep] - refb).abs().max()),
@@ -1297,7 +1308,7 @@ def check_large_kernels(dev) -> dict:
     bad[200, 200] = -1.0  # a pivot of the second panel goes negative
     nan_blocked = bool(torch.isnan(hk.cholesky_blocked(bad)).all())
     emit("kernels_large_n", tol=dict(gram_over_h2=GRAM_TOL, chol_norm=CHOL_NORM_TOL, chol_backward="n·eps32",
-                                     tri="max(1e-4, 2 × plain's distance to f64)"),
+                                     tri="max(1e-4, 2 × the library's distance to f64)"),
          gaussian_gram=gram, cholesky_blocked=chol, tri_solve_blocked=tri, cholesky_batched=batched,
          cholesky_blocked_nan_on_indefinite=nan_blocked)
     for c in gram:
@@ -1309,9 +1320,12 @@ def check_large_kernels(dev) -> dict:
     for c in chol:
         check(c["finite"] and c["upper_zero"], f"cholesky_blocked finite, zeros above the diagonal ({c})")
     for c in batched:
-        check(c["finite"] == [i != 1 for i in range(c["B"])], f"cholesky_batched NaN confined to the indefinite matrix ({c})")
+        check(c["finite"] == [i not in c["indefinite"] for i in range(c["B"])],
+              f"cholesky_batched NaN confined to the indefinite matrices ({c})")
+        check(c["upper_zero"], f"cholesky_batched zeros above the diagonal ({c})")
     for c in tri:
-        check(c["norm_err_vs_f64"] <= max(1e-4, 2.0 * c["plain_norm_err_vs_f64"]), f"tri_solve_blocked accuracy ({c})")
+        check(c["norm_err_vs_f64"] <= max(1e-4, 2.0 * c["library_norm_err_vs_f64"]), f"tri_solve_blocked accuracy ({c})")
+        check(c.get("bit_identical_on_repeat", True), f"tri_solve_blocked deterministic ({c})")
     check(nan_blocked, "cholesky_blocked: an indefinite matrix gives a NaN factor")
     return {"gaussian_gram": max(c["max_abs_err"] for c in gram), "cholesky_blocked": max(c["max_abs_err"] for c in chol),
             "tri_solve_blocked": max(c["max_abs_err"] for c in tri),
@@ -1340,8 +1354,8 @@ def delta(c0: dict, c1: dict) -> dict:
 
 def add_counts(opts, kind: str) -> dict:
     """Expected launches of one large-N add. A refit: per GP a Gram, the
-    factor, and alpha forward + back and L⁻¹ (3 solves), and the cross-Gram of
-    the candidates' anchors. A fast incremental step: two bordering
+    factor, and alpha forward + back and L⁻¹ (3 solves, one launch each), and
+    the cross-Gram of the candidates' anchors. A fast incremental step: two bordering
     cross-Grams, the anchors' cross-Gram, the linear GP's fresh Gram and
     factor, and five single-column solves (the log-GP's bordered row, then
     each GP's alpha forward + back). A fallback (refresh) step: the fast
@@ -1371,13 +1385,15 @@ def loop_step_counts(opts, kind: str) -> dict:
 
 def marginalize_counts(opts) -> dict:
     """Expected launches of marginalize over a batch of θ_tl rows: the log-GP
-    rung stack once (chol_batch up to 240 rows, cholesky_batched above), the
+    rung stack once (chol_batch up to 240 rows, one launch; cholesky_batched
+    above, 3⌈n/64⌉ − 2 launches whatever the batch), the
     linear GP's Gram, factor and alpha (forward + back, the batch of anchors
     as columns), and the V[Z] quadrature's cross-Gram under the linear GP."""
     from tpubq_torch.ops import hopper_kernels as hk
 
     small = hk.chol_batch_supported(opts.max_obs)
-    return dict(esm_fused=0, chol_batch=int(small), cholesky_batched=int(not small), gaussian_gram=2,
+    return dict(esm_fused=0, chol_batch=int(small),
+                cholesky_batched=0 if small else hk.cholesky_batched_launches(opts.max_obs), gaussian_gram=2,
                 cholesky_blocked=hk.cholesky_blocked_launches(opts.max_nsc),
                 tri_solve_blocked=2 * hk.tri_solve_blocked_launches(opts.max_nsc))
 
@@ -1564,7 +1580,9 @@ def esm_size_routes(dev) -> dict:
 def large_timing(dev, label: str) -> dict:
     """CUDA-event times of the four kernels of the large-N path, their plain
     versions and the library call beside each, at the path's max_obs 1024
-    shapes; and the refit / incremental sweep: host ms per closed-loop step of
+    shapes (tri_solve_blocked and cholesky_batched in two turns with their
+    library calls, kernel then library, the faster turn of each reported),
+    with their bounds; and the refit / incremental sweep: host ms per closed-loop step of
     run_active_loop (8 steps, record_moments=False, turns refit, incremental,
     incremental, refit) and per add at an interior point, at max_obs 64 … 1024."""
     import torch
@@ -1585,18 +1603,30 @@ def large_timing(dev, label: str) -> dict:
             kernel_ms=cuda_ms(lambda: hk.cholesky_blocked(A), 20), plain_ms=cuda_ms(lambda: hk.cholesky_blocked_plain(A), 1),
             library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A), 20), launches_per_call=hk.cholesky_blocked_launches(N))
     L = torch.linalg.cholesky(path_gram(rng, n, dev)).contiguous()
-    for M in (n, 1, 100):
+    for M in (n, 1, 3, 100):
         R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
-        lib = cuda_ms(lambda: torch.linalg.solve_triangular(L, R, upper=False), 20)
-        kern[f"tri_solve_blocked_{n}x{M}"] = dict(kernel_ms=cuda_ms(lambda: hk.tri_solve_blocked(L, R), 20), plain_ms=lib,
-                                                  library_ms=lib, launches_per_call=hk.tri_solve_blocked_launches(n))
+        # each call in turn (kernel, library, kernel, library), 20 calls a turn
+        k_ms, lib_ms = [], []
+        for _ in range(2):
+            k_ms.append(cuda_ms(lambda: hk.tri_solve_blocked(L, R), 20))
+            lib_ms.append(cuda_ms(lambda: torch.linalg.solve_triangular(L, R, upper=False), 20))
+        # bytes: L's lower triangle, R and X once; operations: N² M (N² M / 2 multiply-adds)
+        kern[f"tri_solve_blocked_{n}x{M}"] = dict(
+            kernel_ms=min(k_ms), kernel_ms_turns=k_ms, plain_ms=cuda_ms(lambda: hk.tri_solve_blocked_plain(L, R), 2),
+            library_ms=min(lib_ms), library_ms_turns=lib_ms, launches_per_call=hk.tri_solve_blocked_launches(n),
+            **bound(4 * (n * (n + 1) / 2 + 2 * n * M), n * n * M))
     for B, N in LARGE_TIMING_BATCHED:
         base = torch.stack([path_gram(rng, N, dev) for _ in range(8)])
         Ks = base.repeat(B // 8, 1, 1).contiguous()
+        k_ms, lib_ms = [], []
+        for _ in range(2):
+            k_ms.append(cuda_ms(lambda: hk.cholesky_batched(Ks), 3, warmup=1))
+            lib_ms.append(cuda_ms(lambda: torch.linalg.cholesky_ex(Ks), 3, warmup=1))
+        # bytes: the stack read and the factors written once; operations: B N³ / 3
         kern[f"cholesky_batched_{B}x{N}"] = dict(
-            kernel_ms=cuda_ms(lambda: hk.cholesky_batched(Ks), 3, warmup=1),
-            plain_ms=cuda_ms(lambda: hk.cholesky_batched_plain(Ks), 1, warmup=0),
-            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Ks), 3, warmup=1))
+            kernel_ms=min(k_ms), kernel_ms_turns=k_ms, plain_ms=cuda_ms(lambda: hk.cholesky_batched_plain(Ks), 1, warmup=0),
+            library_ms=min(lib_ms), library_ms_turns=lib_ms, launches_per_call=hk.cholesky_batched_launches(N),
+            **bound(2 * 4 * B * N * N, B * N**3 / 3))
         del base, Ks
     torch.cuda.empty_cache()
 
@@ -1825,14 +1855,20 @@ def fleet_timing(dev, fk: dict, fp: dict, mp: dict, label: str) -> dict:
 def large_kernel_entries(lp: dict, lk: dict, lt: dict) -> list:
     """The kernels-line entries of the large-N path's four kernels at its
     max_obs 1024 shapes: the linear GP's Gram and factor (n = 1036), its K⁻¹
-    solve (L⁻¹ against I), marginalize's rung stack (200, 1024, 1024).
-    Bounds: Cholesky n³/3 flops (n dependent steps), the solve N²M flops,
-    the Gram 6 operations per entry at d = 1; bytes as everywhere."""
+    solve (L⁻¹ against I), marginalize's rung stack (200, 1024, 1024); beside
+    the solve its (1036, 1), (1036, 3) and (1036, 100) times and beside the
+    stack its (200, 256, 256) time, each with its library time and bound.
+    Bounds: Cholesky n³/3 flops (n dependent steps), the solve N²M flops and
+    L's lower triangle read once, the Gram 6 operations per entry at d = 1;
+    bytes as everywhere."""
     gn = LARGE_TIMING_N[0]
     bB, bn = LARGE_TIMING_BATCHED[-1]
     kt = lt["kernels"]
     g_t, cb_t = kt["gaussian_gram"], kt[f"cholesky_blocked_{gn}"]
     ts_t, cbat_t = kt[f"tri_solve_blocked_{gn}x{gn}"], kt[f"cholesky_batched_{bB}x{bn}"]
+    at = lambda t: {k: t[k] for k in ("kernel_ms", "library_ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
+    other_tri = {f"at_{gn}x{M}": at(kt[f"tri_solve_blocked_{gn}x{M}"]) for M in (1, 3, 100)}
+    other_batched = {f"at_{B}x{N}": at(kt[f"cholesky_batched_{B}x{N}"]) for B, N in LARGE_TIMING_BATCHED[:-1]}
     return [
         dict(name="gaussian_gram", route="cuda", source="tpubq_torch/csrc/gaussian_gram.cu",
              replaces="tpubq/ops/pallas_kernels.py:144", launches=lp["launches"]["gaussian_gram"],
@@ -1846,13 +1882,14 @@ def large_kernel_entries(lp: dict, lk: dict, lt: dict) -> list:
         dict(name="tri_solve_blocked", route="cuda", source="tpubq_torch/csrc/tri_solve_blocked.cu",
              replaces="tpubq/ops/pallas_kernels.py:563", launches=lp["launches"]["tri_solve_blocked"],
              max_abs_err=lk["tri_solve_blocked"], ms=ts_t["kernel_ms"], plain_ms=ts_t["plain_ms"],
-             **bound(4 * (gn * gn / 2 + 2 * gn * gn), gn * gn * gn), library_ms=ts_t["library_ms"],
-             shape=f"({gn}, {gn}) x ({gn}, {gn})", launches_per_call=ts_t["launches_per_call"]),
-        dict(name="cholesky_batched", route="cuda", source="tpubq_torch/csrc/chol_batch.cu",
+             bound_ms=ts_t["bound_ms"], bound_by=ts_t["bound_by"], library_ms=ts_t["library_ms"],
+             shape=f"({gn}, {gn}) x ({gn}, {gn})", launches_per_call=ts_t["launches_per_call"], **other_tri),
+        dict(name="cholesky_batched", route="cuda", source="tpubq_torch/csrc/chol_batched.cu",
              replaces="tpubq/ops/pallas_kernels.py:211", launches=lp["launches"]["cholesky_batched"],
              max_abs_err=lk["cholesky_batched"], ms=cbat_t["kernel_ms"], plain_ms=cbat_t["plain_ms"],
-             **bound(2 * 4 * bB * bn * bn, bB * bn**3 / 3), library_ms=cbat_t["library_ms"],
-             shape=f"({bB}, {bn}, {bn})", dependent_steps=bn),
+             bound_ms=cbat_t["bound_ms"], bound_by=cbat_t["bound_by"], library_ms=cbat_t["library_ms"],
+             shape=f"({bB}, {bn}, {bn})", dependent_steps=bn, launches_per_call=cbat_t["launches_per_call"],
+             **other_batched),
     ]
 
 

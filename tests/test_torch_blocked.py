@@ -85,22 +85,80 @@ def test_cholesky_blocked_and_batched_nan_where_a_pivot_clamps():
     assert fin == [True, True, False, True, True]
 
 
-def test_tri_solve_blocked_plain_matches_pallas():
+@pytest.mark.parametrize("n,panel,pivots", [(40, 16, (20, 38)), (150, 64, (100, 140))])
+def test_cholesky_batched_plain_nan_confined_past_the_first_panel(n, panel, pivots):
+    """A pivot that clamps in the second panel (matrix 1) or in the ragged
+    last one (matrix 3) makes NaN of its own matrix only; the other factors
+    match the Pallas kernel at atol 5e-5."""
+    rng = np.random.RandomState(n)
+    Ks = np.stack([_spd(rng, n) for _ in range(5)])
+    Ks[1, pivots[0], pivots[0]] = -1.0
+    Ks[3, pivots[1], pivots[1]] = -1.0
+    L = hk.cholesky_batched_plain(_f32(Ks), panel=panel)
+    assert torch.isfinite(L).all(-1).all(-1).tolist() == [True, False, True, False, True]
+    assert bool(torch.isnan(L[[1, 3]]).all())
+    keep = [0, 2, 4]
+    want = np.asarray(pk.cholesky_batched(jnp.asarray(Ks[keep])))
+    np.testing.assert_allclose(np_(L[keep]), want, atol=5e-5)
+
+
+@pytest.mark.parametrize("M", [1, 7, 40])
+def test_tri_solve_blocked_plain_matches_pallas(M):
+    """The blocked forward substitution of the plain version (diagonal blocks
+    inverted by recursive doubling, as the kernel does) at 16-row blocks, the
+    Pallas kernel's blocking here, and at the kernel's 64 (one ragged block),
+    against the Pallas kernel in interpret mode at rtol / atol 2e-4; M = 40
+    solves against the identity (L⁻¹, as linalg.chol_inverse does)."""
     rng = np.random.RandomState(2)
     L = np.linalg.cholesky(_spd(rng, 40).astype(np.float64)).astype(np.float32)
-    R = rng.randn(40, 7).astype(np.float32)
+    R = np.eye(40, dtype=np.float32) if M == 40 else rng.randn(40, M).astype(np.float32)
     want = np.asarray(pk.tri_solve_blocked(jnp.asarray(L), jnp.asarray(R), block=16))
+    for block in (16, hk.TRI_BLOCK):
+        got = hk.tri_solve_blocked_plain(_f32(L), _f32(R), block=block)
+        np.testing.assert_allclose(np_(got), want, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(np_(hk.tri_solve_blocked(_f32(L), _f32(R))), want, rtol=2e-4, atol=2e-4)
-    assert hk.tri_solve_blocked_launches(40) == 2 and hk.tri_solve_blocked_launches(1036) == 10
 
 
-def test_cholesky_batched_plain_matches_pallas():
+@pytest.mark.parametrize("n,panel", [(21, hk.CHOL_BATCHED_PANEL), (40, 16)])
+def test_cholesky_batched_plain_matches_pallas(n, panel):
+    """The panelled plain factor against the Pallas kernel's column recursion
+    in interpret mode at atol 5e-5: one ragged panel (n = 21), and n = 40 at
+    16-wide panels (three panels, the last one ragged)."""
     rng = np.random.RandomState(7)
-    Ks = np.stack([_spd(rng, 21) for _ in range(9)])
+    Ks = np.stack([_spd(rng, n) for _ in range(9)])
     want = np.asarray(pk.cholesky_batched(jnp.asarray(Ks)))
-    L = hk.cholesky_batched(_f32(Ks))
+    L = hk.cholesky_batched_plain(_f32(Ks), panel=panel)
     np.testing.assert_allclose(np_(L), want, atol=5e-5)
     assert bool((torch.triu(L, 1) == 0).all())
+    if panel == hk.CHOL_BATCHED_PANEL:
+        assert torch.equal(hk.cholesky_batched(_f32(Ks)), L)  # a CPU tensor takes the plain version
+
+
+def test_lower_inverse_doubling_matches_the_inverse():
+    """The recursive doubling of the kernels' diagonal blocks (16 × 16 leaves,
+    then levels of 16, 32) against the float64 inverse, at 64 rows in float32:
+    rtol 1e-5 normwise on a well-conditioned factor; zeros above the
+    diagonal; the upper triangle of the input is not read."""
+    rng = np.random.RandomState(11)
+    L64 = np.linalg.cholesky(_spd(rng, 64).astype(np.float64))
+    L = _f32(L64) + torch.triu(torch.full((64, 64), 1e30), 1)
+    Y = hk.lower_inverse_doubling(L)
+    want = np.linalg.inv(L64)
+    assert float(np.abs(np_(Y) - want).max() / np.abs(want).max()) < 1e-5
+    assert bool((torch.triu(Y, 1) == 0).all())
+
+
+@pytest.mark.parametrize("n,blocked,solve,batched", [(40, 1, 1, 1), (128, 1, 1, 4), (256, 4, 1, 10),
+                                                     (1024, 22, 1, 46), (1036, 25, 1, 49)])
+def test_launch_counts_at_the_path_shapes(n, blocked, solve, batched):
+    """CUDA launches per call: cholesky_blocked 3⌈n/128⌉ − 2; tri_solve_blocked
+    one launch whatever n and the number of columns; cholesky_batched
+    3⌈n/64⌉ − 2 whatever the batch (max_obs 256 … 1024 rung stacks, the linear
+    GP's 1036 rows at max_obs 1024)."""
+    assert hk.cholesky_blocked_launches(n) == blocked
+    assert hk.tri_solve_blocked_launches(n) == solve
+    assert hk.cholesky_batched_launches(n) == batched
+    assert hk.cholesky_blocked_launches(0) == hk.tri_solve_blocked_launches(0) == hk.cholesky_batched_launches(0) == 0
 
 
 @pytest.mark.parametrize("lower", [True, False])

@@ -20,8 +20,9 @@ quotient by the Schur complement), off the few points where the degenerate
 masks differ; the large-max_obs kernels on Grams of the large-N recipe at
 s = 0.05 (κ up to ~1e5): the Gram at 1e-6 of h², the two Choleskys at a
 backward error of n·eps32 and within max(1e-4, 2 × the library's distance)
-of the plain recursion, the blocked solve within max(1e-4, 2 × the library's
-distance) of float64.
+of the plain (unblocked / panelled) factor, the blocked solve within
+max(1e-4, 2 × the library's distance) of float64 and within 1e-4 of its plain
+blocked substitution, bit-identical from call to call.
 """
 
 import numpy as np
@@ -392,20 +393,66 @@ def test_cholesky_blocked_kernel_nan_and_input_checks(cuda):
         hk.cholesky_blocked(A.T[:, ::2])
 
 
-@pytest.mark.parametrize("n,M", [(44, 1), (300, 33), (1036, 1), (1036, 1036)])
+def _tri_case(rng, n, M, device):
+    """The factor of a path Gram and R: the identity at M = n, else normal."""
+    L = torch.linalg.cholesky(_path_gram(rng, n, 0.05, device)).contiguous()
+    R = torch.eye(n, device=device) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=device)
+    return L, R
+
+
+def _f64_dist(X, L, R):
+    """max|X − X64| / max|X64|, X64 the float64 solve, and the same for the
+    library's float32 solve."""
+    X64 = torch.linalg.solve_triangular(L.double(), R.double(), upper=False)
+    lib = torch.linalg.solve_triangular(L, R, upper=False)
+    norm = lambda a: float((a.double() - X64).abs().max() / X64.abs().max())  # noqa: E731
+    return norm(X), norm(lib)
+
+
+@pytest.mark.parametrize("n,M", [(37, 1), (44, 1), (300, 33), (1036, 1), (1036, 3), (1036, 100), (1036, 1036),
+                                 (2048, 1)])
 def test_tri_solve_blocked_kernel_matches_plain(cuda, n, M):
-    """Against the library's triangular solve on the factor of a path Gram:
-    within max(1e-4, 2 × the library's own distance to float64), normwise."""
+    """One launch per call; within max(1e-4, 2 × the library's own distance
+    to float64), normwise, on the factor of a path Gram; and within 1e-4 of
+    the plain blocked substitution, normwise."""
     rng = np.random.RandomState(n + M)
-    L = torch.linalg.cholesky(_path_gram(rng, n, 0.05, cuda)).contiguous()
-    R = torch.eye(n, device=cuda) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=cuda)
+    L, R = _tri_case(rng, n, M, cuda)
     before = hk.tri_solve_blocked.launches
     X = hk.tri_solve_blocked(L, R)
     torch.cuda.synchronize()
-    assert hk.tri_solve_blocked.launches == before + hk.tri_solve_blocked_launches(n)
-    X64 = torch.linalg.solve_triangular(L.double(), R.double(), upper=False)
-    norm = lambda a: float((a.double() - X64).abs().max() / X64.abs().max())  # noqa: E731
-    assert norm(X) <= max(1e-4, 2.0 * norm(hk.tri_solve_blocked_plain(L, R)))
+    assert hk.tri_solve_blocked.launches == before + hk.tri_solve_blocked_launches(n) == before + 1
+    got, lib = _f64_dist(X, L, R)
+    assert got <= max(1e-4, 2.0 * lib)
+    plain = hk.tri_solve_blocked_plain(L, R)
+    assert float((X - plain).abs().max() / plain.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n,M", [(1036, 1), (1036, 100), (1036, 1036)])
+def test_tri_solve_blocked_kernel_is_deterministic(cuda, n, M):
+    """Each work item sums its terms in a fixed order, whatever order the
+    flags arrive in: two calls on the same inputs give the same bits."""
+    L, R = _tri_case(np.random.RandomState(n * M), n, M, cuda)
+    X1 = hk.tri_solve_blocked(L, R)
+    X2 = hk.tri_solve_blocked(L, R)
+    torch.cuda.synchronize()
+    assert torch.equal(X1, X2)
+
+
+def test_tri_solve_blocked_kernel_back_to_back_on_one_stream(cuda):
+    """The flag protocol's stress test: 120 solves of assorted sizes queued
+    on one stream with no synchronization between them, each held to its own
+    float64 result at max(1e-4, 2 × the library's distance)."""
+    rng = np.random.RandomState(17)
+    cases = []
+    for k in range(120):
+        n = int(rng.choice([1, 5, 63, 64, 65, 200, 513, 1036]))
+        M = int(rng.choice([1, 2, 5, 8, 9, 64, 70]))
+        cases.append(_tri_case(rng, n, M, cuda))
+    outs = [hk.tri_solve_blocked(L, R) for L, R in cases]
+    torch.cuda.synchronize()
+    for (L, R), X in zip(cases, outs):
+        got, lib = _f64_dist(X, L, R)
+        assert got <= max(1e-4, 2.0 * lib), (tuple(R.shape), got, lib)
 
 
 def test_tri_solve_blocked_kernel_input_checks(cuda):
@@ -418,24 +465,30 @@ def test_tri_solve_blocked_kernel_input_checks(cuda):
         hk.tri_solve_blocked(L, torch.ones(8, 2))
 
 
-@pytest.mark.parametrize("B,n", [(16, 44), (4, 300), (2, 1036)])
+@pytest.mark.parametrize("B,n", [(16, 44), (4, 300), (2, 1036), (8, 1024), (3, 1000)])
 def test_cholesky_batched_kernel_matches_plain_and_confines_nan(cuda, B, n):
-    """In shared memory (n ≤ 240) and in device memory above; one matrix of
-    the stack made indefinite gets NaN, the others within 1e-4 of the plain
-    recursion normwise (or twice the library's distance)."""
+    """One panel (n = 44), several, and a ragged last one (300, 1036, 1000);
+    one matrix of the stack made indefinite at its middle pivot (a later
+    panel from n = 300 up) gets NaN, the others a backward error within
+    n·eps32 and within 1e-4 of the plain panelled factor normwise (or twice
+    the library's distance to it); 3⌈n/64⌉ − 2 launches per call."""
     rng = np.random.RandomState(B * n)
     Ks = torch.stack([_path_gram(rng, n, 0.05, cuda) for _ in range(B)])
     Ks[1, n // 2, n // 2] = -1.0
     before = hk.cholesky_batched.launches
     L = hk.cholesky_batched(Ks)
     torch.cuda.synchronize()
-    assert hk.cholesky_batched.launches == before + 1
+    assert hk.cholesky_batched.launches == before + hk.cholesky_batched_launches(n)
     fin = torch.isfinite(L).all(-1).all(-1).tolist()
     assert fin == [i != 1 for i in range(B)]
     keep = [i for i in range(B) if i != 1]
+    assert bool((torch.triu(L[keep], 1) == 0).all())
     ref, lib = hk.cholesky_batched_plain(Ks[keep]), torch.linalg.cholesky(Ks[keep])
     norm = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
     assert norm(L[keep], ref) <= max(1e-4, 2.0 * norm(lib, ref))
+    Lk = L[keep].double()
+    backward = float((Lk @ Lk.transpose(1, 2) - Ks[keep].double()).abs().max() / Ks[keep].abs().max())
+    assert backward <= n * torch.finfo(torch.float32).eps
     with pytest.raises(ValueError):
         hk.cholesky_batched(Ks[0])
 
@@ -453,11 +506,12 @@ def _large_n_state(device, max_obs, s=0.05, dtype="float32"):
 
 def test_large_n_refit_and_fast_step_go_through_the_kernels(cuda):
     """At max_obs 256 (the log-GP 256 rows, the linear GP 268): a full refit
-    launches gaussian_gram 3 times, cholesky_blocked twice and
-    tri_solve_blocked six times (alpha forward and back, and L⁻¹, per GP); a
-    fast incremental step launches gaussian_gram 4 times, cholesky_blocked
-    once (the linear GP's fresh factor) and tri_solve_blocked five times (the
-    bordered row, and each GP's alpha forward and back)."""
+    launches gaussian_gram 3 times, cholesky_blocked twice (4 + 7 CUDA
+    launches: 3⌈n/128⌉ − 2 each) and tri_solve_blocked six times, one launch
+    each (alpha forward and back, and L⁻¹, per GP); a fast incremental step
+    launches gaussian_gram 4 times, cholesky_blocked once (the linear GP's
+    fresh factor, 7 launches) and tri_solve_blocked five times (the bordered
+    row, and each GP's alpha forward and back)."""
     from tpubq_torch.models import acquire as acq, incremental as inc
 
     st, opts = _large_n_state(cuda, 256)
@@ -470,10 +524,10 @@ def test_large_n_refit_and_fast_step_go_through_the_kernels(cuda):
     c1 = counts()
     fast = inc.add_observation_fast(st, opts, [xa], 0.3)
     c2 = counts()
-    assert [b - a for a, b in zip(c0, c1)] == [
+    assert [b - a for a, b in zip(c0, c1)] == [3, 11, 6] == [
         3, hk.cholesky_blocked_launches(n_s) + hk.cholesky_blocked_launches(n_sc),
         3 * (hk.tri_solve_blocked_launches(n_s) + hk.tri_solve_blocked_launches(n_sc))]
-    assert [b - a for a, b in zip(c1, c2)] == [
+    assert [b - a for a, b in zip(c1, c2)] == [4, 7, 5] == [
         4, hk.cholesky_blocked_launches(n_sc),
         3 * hk.tri_solve_blocked_launches(n_s) + 2 * hk.tri_solve_blocked_launches(n_sc)]
     zm = [float(acq.Z_mean(s_, opts)) for s_ in (full, fast)]

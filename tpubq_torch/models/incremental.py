@@ -43,22 +43,22 @@ step matches the full refit to roundoff.
 When it pays: never, so far, on the card. Measured on an NVIDIA H100 80GB
 HBM3 at a 700 W power limit by ``chip_smoke.py``'s large-N timing (the recipe
 of ``benchmarks/large_n.py`` at s = 0.05: ms per step of an 8-step
-``run_active_loop`` without moments, refit / incremental, two runs):
+``run_active_loop`` without moments, refit / incremental, the mean of two
+turns each; PERF.md §6 keeps every run), with the single-column solve at
+~0.04 ms (one launch):
 
     max_obs     64     96    128    192    256    512   1024
-    run 1     10.9   11.3   10.1   11.4   15.2   28.7   84.8
-             /12.5  /16.6  /12.3  /16.4  /17.5  /35.2  /86.6
-    run 2      6.1    5.6    5.9    7.9   10.2   24.0   80.5
-              /8.2   /7.2   /7.8   /9.0  /12.1  /28.1  /84.0
+    refit      5.9    6.3    7.3    9.2   12.2   23.6   77.9
+    incr.      8.4    8.5    8.9    9.1   14.4   26.7   81.1
 
-The refit wins the loop at every size (0.68–0.98×). A fast step still
-refactors the linear GP (``cholesky_blocked``, 2.3 ms at n = 1036) and runs
-five single-column solves, each as slow as a 1036-column one on
-``tri_solve_blocked`` (1.3 ms, its launch chain); the loop's first picks
-extend the observed range and fall back to the refit after the fast path's
-work; and at large max_obs the step's time is the scorer's (``esm_fused``,
-65 of the 78 ms of device time at 1024). So ``"auto"`` takes the refit
-everywhere.
+The refit wins the loop at every size but 192, where the turns overlap
+(refit 10.1 and 8.4, incremental 9.0 and 9.2). The add alone is faster on
+the fast path from max_obs 512 up (5.7 against 7.7 ms at 512, 6.7 against
+8.4 ms at 1024), but the loop's first picks extend the observed range and
+fall back to the refit after the fast path's work, a fast step still
+refactors the linear GP (``cholesky_blocked``, 2.3 ms at n = 1036), and at
+large max_obs the step's time is the scorer's (``esm_fused``, 92% of the
+device time at 1024). So ``"auto"`` takes the refit everywhere.
 
 A fleet state (a leading problem axis) raises: the JAX module forbids
 ``vmap`` (under batching its cond runs both branches), and the fleet keeps

@@ -23,9 +23,9 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu", "esm_fleet_l.cu", "esm_fleet_tl.cu",
-           "gaussian_gram.cu", "chol_blocked.cu", "tri_solve_blocked.cu")
+           "gaussian_gram.cu", "chol_blocked.cu", "tri_solve_blocked.cu", "chol_batched.cu")
 #: Headers the sources include (hashed with them, never compiled alone).
-HEADERS = ("chol_columns.cuh", "esm_fleet_common.cuh")
+HEADERS = ("chol_columns.cuh", "esm_fleet_common.cuh", "tri_block.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -47,8 +47,8 @@ _SIG = {
     "tpubq_esm_fleet_tl": ([_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p, _p], _i),
     "tpubq_gaussian_gram": ([_p, _p, _p, _i, _i, _i, _p, _p], _i),
     "tpubq_chol_blocked": ([_p, _p, _p, _p, _p, _i, _ip, _p], _i),
-    "tpubq_tri_solve_blocked": ([_p, _p, _p, _p, _i, _i, _ip, _p], _i),
-    "tpubq_chol_batched": ([_p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
+    "tpubq_tri_solve_blocked": ([_p, _p, _p, _p, _i, _i, _p], _i),
+    "tpubq_chol_batched": ([_p, _p, _p, _p, _p, _i, _i, _i, _ip, _p], _i),
 }
 
 _lock = threading.Lock()

@@ -19,20 +19,21 @@ Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
 * ``cholesky_blocked`` (``csrc/chol_blocked.cu``) ← ``cholesky_blocked`` and
   ``tri_solve_blocked`` (``csrc/tri_solve_blocked.cu``) ←
   ``tri_solve_blocked``: the factor and the triangular solves of one large
-  matrix, behind the unbatched float32 refits (``linalg``).
-* ``cholesky_batched`` (``csrc/chol_batch.cu``) ← ``cholesky_batched``: the
-  batched factorization above ``chol_batch``'s shared-memory limit.
+  matrix, behind the unbatched float32 refits (``linalg``); the solve is one
+  launch whose row blocks wait for each other through flags in device memory.
+* ``cholesky_batched`` (``csrc/chol_batched.cu``) ← ``cholesky_batched``: the
+  panelled batched factorization above ``chol_batch``'s shared-memory limit.
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its CUDA kernel
 launches in a plain integer attribute (``esm_fused.launches``, …,
 ``tri_solve_blocked.launches``), incremented where the kernel is launched and
-nowhere else; ``cholesky_blocked`` and ``tri_solve_blocked`` make several
+nowhere else; ``cholesky_blocked`` and ``cholesky_batched`` make several
 launches per call (``cholesky_blocked_launches``,
-``tri_solve_blocked_launches``). Callers choose a kernel route from shapes,
-dtype and device before any launch (``kernel_route``). Nothing here imports
-a CUDA toolchain at import time: the library is built by ``_build`` on the
-first launch.
+``cholesky_batched_launches``; ``tri_solve_blocked_launches`` is one).
+Callers choose a kernel route from shapes, dtype and device before any
+launch (``kernel_route``). Nothing here imports a CUDA toolchain at import
+time: the library is built by ``_build`` on the first launch.
 """
 
 from __future__ import annotations
@@ -73,6 +74,8 @@ __all__ = [
     "tri_solve_blocked_launches",
     "cholesky_batched",
     "cholesky_batched_plain",
+    "cholesky_batched_launches",
+    "lower_inverse_doubling",
 ]
 
 #: Shared memory one block may use on H100 (227 KB).
@@ -779,22 +782,90 @@ def cholesky_blocked_launches(n: int) -> int:
 
 
 def tri_solve_blocked_launches(n: int) -> int:
-    """CUDA launches of one ``tri_solve_blocked`` call with n rows: the
-    diagonal-block inverses, then one per 128-row block — 1 + ⌈n/128⌉."""
-    return 1 + _panels(n) if n > 0 else 0
+    """CUDA launches of one ``tri_solve_blocked`` call with n rows: one (the
+    row blocks wait for each other through flags, not through stream
+    order), whatever the number of columns."""
+    return 1 if n > 0 else 0
 
 
-def cholesky_batched_plain(Ks: torch.Tensor) -> torch.Tensor:
-    """``cholesky_batched`` in torch ops: the column recursion with the pivot
-    clamped at tiny, and NaN in every matrix where a pivot was clamped."""
-    L, clamped = _chol_columns_plain(Ks, clamp_pivot=True, report_clamps=True)
+#: Rows per row block of ``tri_solve_blocked``; panel width of
+#: ``cholesky_batched``. The diagonal blocks' inverses are formed by recursive
+#: doubling over 16 × 16 leaves, so both are 16 · 2^k.
+TRI_BLOCK = 64
+CHOL_BATCHED_PANEL = 64
+_LEAF = 16
+#: Up to this many right-hand-side columns ``tri_solve_blocked`` makes one
+#: work item per column and row block; above, 64-column tiles.
+_TRI_VEC_MAX_M = 8
+#: Largest n of ``cholesky_batched``: its trailing update's lower 128 × 128
+#: tiles are a grid axis of at most 65,535 blocks.
+_CHOL_BATCHED_MAX_N = 64 + 361 * 128
+
+
+def cholesky_batched_launches(n: int) -> int:
+    """CUDA launches of one ``cholesky_batched`` call on a (B, n, n) stack,
+    whatever B: per 64-wide panel the diagonal block, and below all but the
+    last the panel product and the trailing update — 3·⌈n/64⌉ − 2."""
+    return 3 * ((n + CHOL_BATCHED_PANEL - 1) // CHOL_BATCHED_PANEL) - 2 if n > 0 else 0
+
+
+def lower_inverse_doubling(Lb: torch.Tensor) -> torch.Tensor:
+    """Inverse of a (..., nb, nb) lower-triangular block (nb = 16 · 2^k; only
+    the lower triangle is read) as the kernels form it: each 16 × 16 diagonal
+    leaf by row substitution, then, for s = 16, 32, …, every pair
+    [A 0; C D] of s × s blocks with known inverses as
+    [A⁻¹ 0; −D⁻¹(C A⁻¹) D⁻¹]."""
+    nb = Lb.shape[-1]
+    if nb % _LEAF or (nb // _LEAF) & (nb // _LEAF - 1):
+        raise ValueError(f"lower_inverse_doubling: the block must be 16 · 2^k rows, got {nb}")
+    Y = torch.zeros_like(Lb)
+    eye = torch.eye(_LEAF, dtype=Lb.dtype, device=Lb.device)
+    for o in range(0, nb, _LEAF):
+        A = Lb[..., o:o + _LEAF, o:o + _LEAF]
+        Yl = Y[..., o:o + _LEAF, o:o + _LEAF]
+        for r in range(_LEAF):
+            s = eye[r] - (A[..., r, :r, None] * Yl[..., :r, :]).sum(-2)
+            Yl[..., r, :] = s / A[..., r, r, None]
+    s = _LEAF
+    while s < nb:
+        for o in range(0, nb, 2 * s):
+            A = Y[..., o:o + s, o:o + s]
+            D = Y[..., o + s:o + 2 * s, o + s:o + 2 * s]
+            C = Lb[..., o + s:o + 2 * s, o:o + s]  # wholly below the diagonal
+            Y[..., o + s:o + 2 * s, o:o + s] = -(D @ (C @ A))
+        s *= 2
+    return Y
+
+
+def cholesky_batched_plain(Ks: torch.Tensor, panel: int = CHOL_BATCHED_PANEL) -> torch.Tensor:
+    """``cholesky_batched`` in torch ops, panel by panel as the kernel runs:
+    the clamped column recursion inside each diagonal block, its inverse by
+    ``lower_inverse_doubling``, the panel L_ik = A_ik Y_kkᵀ and the trailing
+    update A_ii −= L_ik L_ikᵀ; NaN in every matrix where a pivot was clamped.
+    Only the lower triangles are read. ``panel`` is 16 · 2^k."""
+    B, n, _ = Ks.shape
+    work = torch.tril(Ks)
+    L = torch.zeros_like(Ks)
+    clamped = torch.zeros(B, dtype=torch.bool, device=Ks.device)
+    for k0 in range(0, n, panel):
+        w = min(panel, n - k0)
+        Lkk, cl = _chol_columns_plain(work[:, k0:k0 + w, k0:k0 + w], clamp_pivot=True, report_clamps=True)
+        clamped |= cl
+        L[:, k0:k0 + w, k0:k0 + w] = Lkk
+        if k0 + w == n:
+            break
+        Y = lower_inverse_doubling(Lkk)
+        Lik = work[:, k0 + w:, k0:k0 + w] @ Y.transpose(-1, -2)
+        L[:, k0 + w:, k0:k0 + w] = Lik
+        work[:, k0 + w:, k0 + w:] -= Lik @ Lik.transpose(-1, -2)
     return torch.where(clamped[:, None, None], torch.full_like(L, float("nan")), L)
 
 
 def cholesky_blocked_plain(A: torch.Tensor) -> torch.Tensor:
     """``cholesky_blocked`` in torch ops (the unblocked column recursion with
     the clamped pivot, NaN where a pivot was clamped)."""
-    return cholesky_batched_plain(A[None])[0]
+    L, clamped = _chol_columns_plain(A[None], clamp_pivot=True, report_clamps=True)
+    return torch.where(clamped[:, None, None], torch.full_like(L, float("nan")), L)[0]
 
 
 def _check_square(name: str, A: torch.Tensor, ndim: int) -> None:
@@ -841,20 +912,43 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
 cholesky_blocked.launches = 0
 
 
-def tri_solve_blocked_plain(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """X = L⁻¹R by the library's triangular solve (lower triangle of L read):
-    the oracle of the kernel and its CPU path."""
-    return torch.linalg.solve_triangular(L, R, upper=False)
+def tri_solve_blocked_plain(L: torch.Tensor, R: torch.Tensor, block: int = TRI_BLOCK) -> torch.Tensor:
+    """``tri_solve_blocked`` in torch ops, row block by row block as the
+    kernel runs: X_i = Y_ii (R_i − Σ_{j<i} L_ij X_j), with Y_ii the inverse
+    of the diagonal block (identity-padded to ``block`` rows) by
+    ``lower_inverse_doubling``. Only the lower triangle of L is read;
+    ``block`` is 16 · 2^k."""
+    N = L.shape[0]
+    X = torch.empty_like(R)
+    for i0 in range(0, N, block):
+        nb = min(block, N - i0)
+        Lb = torch.eye(block, dtype=L.dtype, device=L.device)  # a ragged last block is identity-padded
+        Lb[:nb, :nb] = torch.tril(L[i0:i0 + nb, i0:i0 + nb])
+        Y = lower_inverse_doubling(Lb)[:nb, :nb]
+        X[i0:i0 + nb] = Y @ (R[i0:i0 + nb] - L[i0:i0 + nb, :i0] @ X[:i0])
+    return X
+
+
+def _tri_solve_sync_ints(N: int, M: int) -> int:
+    """Zeroed int32 scratch of one ``tri_solve_blocked`` launch: up to 8
+    columns, the ticket, a pad and N·M ready-marked 64-bit words of X; above,
+    the ticket and one flag per work item (row block × 64-column tile)."""
+    if M <= _TRI_VEC_MAX_M:
+        return 2 + 2 * N * M
+    return 1 + ((N + TRI_BLOCK - 1) // TRI_BLOCK) * ((M + 63) // 64)
 
 
 def tri_solve_blocked(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """X = L⁻¹R for a lower-triangular (N, N) ``L`` and (N, M) ``R``, float32
     and contiguous on one device; only the lower triangle of L is read.
 
-    Blocked forward substitution over 128-row blocks
-    (``tri_solve_blocked_launches(N)`` CUDA launches). A back substitution
-    with an upper-triangular U is the forward one on J U J (J reverses the
-    index order): ``linalg.tri_solve(..., lower=False)``.
+    One CUDA launch (``tri_solve_blocked_launches(N)``): 64-row blocks × column
+    tiles as work items, taken in order from a ticket counter, each waiting
+    on the items above it through flags or ready-marked words in device
+    memory (zeroed scratch from ``torch.zeros``). Deterministic: two
+    calls on the same inputs give the same bits. A back substitution with an
+    upper-triangular U is the forward one on J U J (J reverses the index
+    order): ``linalg.tri_solve(..., lower=False)``. No host sync.
     """
     _check_square("tri_solve_blocked", L, 2)
     if R.ndim != 2 or R.shape[0] != L.shape[0]:
@@ -868,15 +962,16 @@ def tri_solve_blocked(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     X = torch.empty_like(R)
     if N == 0 or M == 0:
         return X
+    if N * M >= 2**31 - 1:
+        raise ValueError(f"tri_solve_blocked: too many entries ({N} × {M}) for one launch")
     from tpubq_torch.ops import _build
 
-    Yd = torch.empty((_panels(N), PANEL, PANEL), dtype=torch.float32, device=L.device)
-    launches = ctypes.c_int(0)
+    sync = torch.zeros((_tri_solve_sync_ints(N, M),), dtype=torch.int32, device=L.device)
     lib = _build.library()
     with torch.cuda.device(L.device):
-        err = lib.tpubq_tri_solve_blocked(L.data_ptr(), R.data_ptr(), X.data_ptr(), Yd.data_ptr(), N, M,
-                                          ctypes.byref(launches), _stream_ptr(L))
-        tri_solve_blocked.launches += launches.value
+        err = lib.tpubq_tri_solve_blocked(L.data_ptr(), R.data_ptr(), X.data_ptr(), sync.data_ptr(), N, M,
+                                          _stream_ptr(L))
+        tri_solve_blocked.launches += 1
     _check(err, "tri_solve_blocked")
     return X
 
@@ -888,17 +983,14 @@ tri_solve_blocked.launches = 0
 # cholesky_batched (a stack of matrices of any size)
 # ---------------------------------------------------------------------------
 
-_CHOL_BATCHED_THREADS = 1024
-
-
 def cholesky_batched(Ks: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factors of a (B, N, N) float32 stack, exact zeros above
     the diagonal; only the lower triangles are read.
 
-    One thread block per matrix runs the column recursion with the pivot
-    clamped at tiny; the matrix sits in shared memory for N ≤ 240
-    (``chol_batch_supported``) and in device memory above. A matrix with a
-    clamped pivot comes back NaN, in its own entry only. No host sync.
+    Right-looking with 64-wide panels, the batch a grid axis of every phase:
+    ``cholesky_batched_launches(N)`` CUDA launches whatever B (N ≤ 46,272).
+    The pivot is clamped at tiny, and a matrix with a clamped pivot comes
+    back NaN, in its own entry only. No host sync.
     """
     _check_square("cholesky_batched", Ks, 3)
     _check_f32("cholesky_batched", Ks.device, Ks=Ks)
@@ -910,20 +1002,23 @@ def cholesky_batched(Ks: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(Ks)
     if B == 0 or n == 0:
         return L
-    if B > 2**31 - 1:
-        raise ValueError(f"cholesky_batched: too many matrices ({B})")
-    in_shared = chol_batch_supported(n)
-    smem = 4 * (2 * n + (n * n if in_shared else 0))
+    if B > 2**31 - 1 or n > _CHOL_BATCHED_MAX_N:
+        raise ValueError(f"cholesky_batched: B ≤ 2³¹ − 1 and N ≤ {_CHOL_BATCHED_MAX_N}, got {tuple(Ks.shape)}")
+    P = CHOL_BATCHED_PANEL
+    ldp = (n + 3) // 4 * 4
     flags = torch.empty((B,), dtype=torch.int32, device=Ks.device)
+    Yt = torch.empty((B, P, P), dtype=torch.float32, device=Ks.device)
+    PT = torch.empty((B, P, ldp) if n > P else (1, 4), dtype=torch.float32, device=Ks.device)
     from tpubq_torch.ops import _build
 
+    launches = ctypes.c_int(0)
     lib = _build.library()
     with torch.cuda.device(Ks.device):
-        err = lib.tpubq_chol_batched(Ks.data_ptr(), L.data_ptr(), flags.data_ptr(), B, n, int(in_shared),
-                                     _CHOL_BATCHED_THREADS, smem, _stream_ptr(Ks))
-        cholesky_batched.launches += 1
+        err = lib.tpubq_chol_batched(Ks.data_ptr(), L.data_ptr(), flags.data_ptr(), Yt.data_ptr(), PT.data_ptr(),
+                                     ldp, B, n, ctypes.byref(launches), _stream_ptr(Ks))
+        cholesky_batched.launches += launches.value
     _check(err, "cholesky_batched")
-    return torch.where(flags.bool()[:, None, None], torch.full_like(L, float("nan")), L)
+    return L
 
 
 cholesky_batched.launches = 0

@@ -42,16 +42,22 @@ before the final line):
               marginalize(100 θ_tl rows), plus one refit, one fast and one
               refresh step; exact launch counts per step kind; each loop held
               to the port's float64 CPU path on its own picks, "auto" to the
-              mode it resolves to. Then which scorer each state size takes
-              (max_obs 32, 1024, 2048), card against CPU.
+              mode it resolves to; esm_fused held to its twin on the states
+              the max_obs 1024 refit loop scored. Then which scorer each
+              state size takes (max_obs 32, 1024, 2048: esm_fused at every
+              size), card against CPU.
 6. s = 0    — printed, not gated: how many active steps the float32 log-GP
               Gram survives at s = 0 before rung 0 of the jitter ladder fails,
               with fixed hypers, after one fit, and with a refit every step.
 7. timing   — CUDA-event times of each kernel, its plain twin and the library
               call or nearest plain route beside it, and host-clock times of
               fit_hypers, add_observation, marginalize and the fleet's calls
-              at B = 1, 8 and 64; the refit / incremental sweep (ms per step at
-              max_obs 64 … 1024) that INCREMENTAL_AUTO_WINDOW is read from.
+              at B = 1, 8 and 64; esm_fused at the large-N path's shapes and
+              the crossover of its two designs (ESM_TILED_FROM);
+              cholesky_blocked at n = 32 … 1036 beside cholesky_ex and
+              cholesky_batched on a (1, n, n) stack; the refit / incremental
+              sweep (ms per step at max_obs 64 … 1024) that
+              INCREMENTAL_AUTO_WINDOW is read from.
 
 Then the kernel summary line, the nvidia-smi line, and the final
 {"ok": true, ...} line. Imports nothing from JAX or the JAX package.
@@ -1175,6 +1181,14 @@ LARGE_KERNEL_NS = (44, 128, 300, 1036)
 # marginalize rung stacks (2 × 100 θ_tl rows) at max_obs 256 and 1024.
 LARGE_TIMING_N = (1036, 1024)
 LARGE_TIMING_BATCHED = ((200, 256), (200, 1024))
+# cholesky_blocked timed at LARGE_KERNEL_NS, the main path's 32 rows and the
+# log-GP's 1024 at max_obs 1024
+LARGE_CHOL_TIMING_N = (32, 44, 128, 300, 1024, 1036)
+# esm_fused at the large-N path's scored shape (G 512, max_obs 1024) and on a
+# 10⁴-point grid; the crossover between its two designs at NP = max_obs + 12
+ESM_LARGE_SHAPES = ((LARGE_G, 1024), (10_000, 1024))
+ESM_CROSSOVER_NP = (24, 28, 36, 44, 76)
+ESM_CROSSOVER_G = (10_000, LARGE_G)
 GRAM_TOL = 1e-6  # max|Δ| / h²: expf against torch.exp, a few float32 ulps
 
 
@@ -1241,12 +1255,14 @@ def check_large_kernels(dev) -> dict:
       max|Δ| ≤ GRAM_TOL·h²;
     * cholesky_blocked and cholesky_batched: backward error
       max|LLᵀ − A| / max|A| ≤ n·eps32, and within CHOL_NORM_TOL of the plain
-      factor (cholesky_blocked's unblocked recursion, cholesky_batched's
-      panelled one) normwise or twice the library's own distance to it where
-      that is larger (two float32 factorizations of a κ ~ 1e5 matrix); a
-      matrix made indefinite comes back NaN, in its own entry of a stack only,
-      with its bad pivot past the first 64-wide panel and, from n = 128 up,
-      a second one in the last panel;
+      factor (cholesky_blocked's left-looking tiles, cholesky_batched's
+      panelled recursion) normwise or twice the library's own distance to it
+      where that is larger (two float32 factorizations of a κ ~ 1e5 matrix);
+      a matrix made indefinite comes back NaN, in its own entry of a stack
+      only, with its bad pivot past the first 64-wide panel and, from n = 128
+      up, a second one in the last panel (cholesky_blocked: a bad pivot in a
+      middle, the ragged last or the only tile); two cholesky_blocked calls
+      give the same bits;
     * tri_solve_blocked: (n, 1), (n, 3), (n, 100) and (n, n) = L⁻¹ against
       float64, within max(1e-4, 2 × the library's own distance) normwise;
       and at n = 1036 two calls on the same inputs give the same bits.
@@ -1273,7 +1289,8 @@ def check_large_kernels(dev) -> dict:
         L64 = L.double()
         chol.append(dict(n=n, finite=bool(torch.isfinite(L).all()), upper_zero=bool((torch.triu(L, 1) == 0).all()),
                          backward_err=norm(L64 @ L64.T, A), norm_err=norm(L, ref), library_norm_err=norm(lib, ref),
-                         max_abs_err=float((L - ref).abs().max()), tol_backward=n * eps))
+                         max_abs_err=float((L - ref).abs().max()), tol_backward=n * eps,
+                         bit_identical_on_repeat=bool(torch.equal(L, hk.cholesky_blocked(A)))))
         for M in (1, 3, 100, n):
             R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
             X = hk.tri_solve_blocked(ref, R)
@@ -1304,9 +1321,11 @@ def check_large_kernels(dev) -> dict:
     th3 = torch.tensor([0.7, 0.5, 0.9, 1.1], device=dev)
     a, b = (torch.as_tensor(rng.randn(m, 3), dtype=torch.float32, device=dev) for m in (300, 512))
     gram.append(dict(shape=[300, 512, 3], max_abs_err=float((hk.gaussian_gram(th3, a, b) - hk.gaussian_gram_plain(th3, a, b)).abs().max())))
-    bad = path_gram(rng, 300, dev)
-    bad[200, 200] = -1.0  # a pivot of the second panel goes negative
-    nan_blocked = bool(torch.isnan(hk.cholesky_blocked(bad)).all())
+    nan_blocked = True
+    for n, at in ((300, 200), (1036, 1030), (44, 10)):  # a pivot of a middle, the ragged last or the only tile
+        bad = path_gram(rng, n, dev)
+        bad[at, at] = -1.0
+        nan_blocked = nan_blocked and bool(torch.isnan(hk.cholesky_blocked(bad)).all())
     emit("kernels_large_n", tol=dict(gram_over_h2=GRAM_TOL, chol_norm=CHOL_NORM_TOL, chol_backward="n·eps32",
                                      tri="max(1e-4, 2 × the library's distance to f64)"),
          gaussian_gram=gram, cholesky_blocked=chol, tri_solve_blocked=tri, cholesky_batched=batched,
@@ -1319,6 +1338,7 @@ def check_large_kernels(dev) -> dict:
         check(c["norm_err"] <= max(CHOL_NORM_TOL, 2.0 * c["library_norm_err"]), f"factor within the library's distance ({c})")
     for c in chol:
         check(c["finite"] and c["upper_zero"], f"cholesky_blocked finite, zeros above the diagonal ({c})")
+        check(c["bit_identical_on_repeat"], f"cholesky_blocked deterministic ({c})")
     for c in batched:
         check(c["finite"] == [i not in c["indefinite"] for i in range(c["B"])],
               f"cholesky_batched NaN confined to the indefinite matrices ({c})")
@@ -1372,12 +1392,12 @@ def add_counts(opts, kind: str) -> dict:
 
 def loop_step_counts(opts, kind: str) -> dict:
     """Expected launches of one step of run_active_loop: choose_next (one
-    esm_fused), the add, and the moments (Z_var's quadrature: 3 Grams and one
-    solve under the log-GP's factor)."""
+    esm_fused call: ``esm_fused_launches`` launches), the add, and the moments
+    (Z_var's quadrature: 3 Grams and one solve under the log-GP's factor)."""
     from tpubq_torch.ops import hopper_kernels as hk
 
     c = add_counts(opts, kind)
-    c["esm_fused"] += 1
+    c["esm_fused"] += hk.esm_fused_launches(opts.max_nsc, opts.max_obs, opts.dim)
     c["gaussian_gram"] += 3
     c["tri_solve_blocked"] += hk.tri_solve_blocked_launches(opts.max_obs)
     return c
@@ -1404,7 +1424,9 @@ def large_n_path(dev) -> dict:
     run_active_loop (8 steps, incremental False, True and "auto") →
     marginalize(100 given θ_tl rows), with the launch counters zeroed before
     and read after; then, outside the counted run, the checks against the
-    port's float64 CPU path on the same data and picks."""
+    port's float64 CPU path on the same data and picks, and esm_fused against
+    its twin (both guards) on each state the max_obs 1024 refit loop scored,
+    replayed on the card."""
     import torch
 
     from tpubq_torch.models import acquire, bq as bqm, incremental as inc, marginalize as margm
@@ -1453,7 +1475,7 @@ def large_n_path(dev) -> dict:
     launches = kernel_counts()
 
     # ---- everything below compares; none of it counts as the path's launches
-    results, failures = {}, []
+    results, failures, esm_cases = {}, [], []
     for m, run in runs.items():
         opts = run["opts"]
         st64, opts64 = large_state("cpu", m, "float64")
@@ -1469,6 +1491,9 @@ def large_n_path(dev) -> dict:
             zrel, vrel = [rel(run["z0"][0], z64[0])], [rel(run["z0"][1], z64[1])]
             gaps, errs, resolved = [], [], []
             for k, x in enumerate(loop["xs"].tolist()):
+                if mode == "False" and m == LARGE_MAX_OBS[-1]:  # esm_fused against its twin on the scored state
+                    args = acquire.esm_fused_inputs(s32, opts, grid_dev[:, None])
+                    esm_cases += [esm_vs_plain(args, guard, MAX_FLIPS, max_obs=m, step=k) for guard in ("adaptive", "tpu")]
                 gap, err, n_ok = pick_gap(s32, opts, s64, opts64, x, grid_dev, grid64)
                 gaps.append(gap)
                 errs.append(err)
@@ -1522,6 +1547,7 @@ def large_n_path(dev) -> dict:
         res["fast_step_Z_mean_rel_to_refit"] = rel(run["kinds"]["fast"]["Z_mean"], run["kinds"]["refit"]["Z_mean"])
         res["seconds_per_mode"] = {k: v["seconds"] for k, v in run["modes"].items()}
         results[m] = res
+    emit("large_n_esm_vs_plain", G=LARGE_G, tol_norm=ESM_NORM_TOL, max_flips=MAX_FLIPS, cases=esm_cases)
     emit("large_n_path", steps=LARGE_STEPS, G=LARGE_G, s=S_LARGE, seconds=seconds, launches=launches,
          tol=dict(Z_mean=LARGE_ZMEAN_RTOL, Z_var=LARGE_ZVAR_RTOL, marg_mean=LARGE_MARG_RTOL,
                   inc_Z_mean=INC_ZMEAN_RTOL, inc_Z_var=INC_ZVAR_RTOL, esm_argmax=ESM_ARGMAX_RTOL),
@@ -1543,7 +1569,7 @@ def large_n_path(dev) -> dict:
               f"max_obs {m}: incremental ≡ refit on the card ({iv})")
         check(r["auto_identical"], f"max_obs {m}: auto ≡ incremental={r['auto_resolves_to']}")
         check(r["fast_step_Z_mean_rel_to_refit"] <= INC_ZMEAN_RTOL, f"max_obs {m}: fast step ≡ refit step")
-    return {"launches": launches}
+    return {"launches": launches, "esm_max_abs_err": max(c["max_abs_err"] for c in esm_cases)}
 
 
 def esm_size_routes(dev) -> dict:
@@ -1551,8 +1577,8 @@ def esm_size_routes(dev) -> dict:
     card's float32 scores held to the CPU's float32 scores on the same route
     at 1e-4 of the largest score, off at most 2 points (degenerate-mask flips
     between two float32 evaluations): the testbed's 10 points at max_obs 32,
-    1024 and 2048. At 2048 the state exceeds esm_fused's shared-memory budget
-    and takes the plain scorer, as the JAX package scores every size."""
+    1024 and 2048. Every size takes esm_fused: one launch at max_obs 32, two
+    (the tiled design, which streams the inverses) at 1024 and 2048."""
     import torch
 
     from tpubq_torch.models import acquire
@@ -1571,18 +1597,74 @@ def esm_size_routes(dev) -> dict:
                             NP=bq.options.max_nsc, points_off=int(off.sum()),
                             max_rel_err=float(((got - want).abs() / want.abs().max())[~off].max()))
     emit("esm_size_routes", G=len(grid), **{f"max_obs_{m}": r for m, r in out.items()})
-    check(out[2048]["route"] == "plain" and out[2048]["esm_fused_launches"] == 0, "max_obs 2048 takes the plain scorer")
-    check(out[32]["route"] == out[1024]["route"] == "esm_fused", "max_obs 32 and 1024 take esm_fused")
+    check(all(r["route"] == "esm_fused" for r in out.values()), "max_obs 32, 1024 and 2048 take esm_fused")
+    check(all(r["esm_fused_launches"] == hk.esm_fused_launches(r["NP"], m, 1) for m, r in out.items()),
+          f"one esm_fused call per sweep, at its launch count ({out})")
+    check(out[2048]["esm_fused_launches"] == 2, "max_obs 2048 takes esm_fused's tiled design")
     check(all(r["points_off"] <= 2 for r in out.values()), f"card scores ≡ CPU scores on every route ({out})")
+    return out
+
+
+def esm_ops(G: int, NP: int, NP2: int) -> float:
+    """float32 operations of one ESM sweep (an expf counted as one): 2 per
+    (i, j) term of the two quadratic forms, ~12 per row for the cross-kernel
+    and the dots, ~40 per point for the rest."""
+    return G * (2 * NP * NP + 2 * NP2 * NP2 + 12 * (NP + NP2) + 40)
+
+
+def esm_bytes(G: int, NP: int, NP2: int, d: int = 1) -> float:
+    """Bytes of one ESM sweep read or written once: the grid, the packed
+    scalars, the problem's vectors and inverses, the scores."""
+    return 4 * (12 + G * d + (3 + d) * NP + NP * NP + (2 + d) * NP2 + NP2 * NP2 + G)
+
+
+def esm_timing(dev) -> dict:
+    """esm_fused on the large-N recipe's max_obs 1024 state (NP 1036, NP2
+    1024) at ESM_LARGE_SHAPES, in two turns, beside its plain twin and the
+    plain scorer (``expected_squared_mean_xla``, what the port ran for states
+    above the old design's shared memory), with its bound; and the crossover
+    of its two designs: both timed on the testbed state at NP =
+    ESM_CROSSOVER_NP on ESM_CROSSOVER_G grids (where ``ESM_TILED_FROM`` is
+    read from)."""
+    import torch
+
+    from tpubq_torch.models import acquire
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    out = {}
+    st, opts = large_state(dev, 1024, "float32")
+    for Gs, m in ESM_LARGE_SHAPES:
+        args = acquire.esm_fused_inputs(st, opts, torch.linspace(-4.0, 4.0, Gs, device=dev)[:, None])
+        NP, NP2 = args[2].shape[0], args[7].shape[0]
+        it = 20 if Gs <= LARGE_G else 5
+        turns = [cuda_ms(lambda: hk.esm_fused(*args), it) for _ in range(2)]
+        out[f"esm_fused_G{Gs}_NP{NP}"] = dict(
+            kernel_ms=min(turns), kernel_ms_turns=turns, launches_per_call=hk.esm_fused_launches(NP, NP2, 1),
+            plain_ms=cuda_ms(lambda: hk.esm_fused_plain(*args), 2, warmup=1),
+            plain_scorer_ms=cuda_ms(lambda: acquire.expected_squared_mean_xla(st, opts, args[1]), 2, warmup=1),
+            **bound(esm_bytes(Gs, NP, NP2), esm_ops(Gs, NP, NP2)))
+    cross = {}
+    for NP in ESM_CROSSOVER_NP:
+        bq = make_bq(testbed_x(False), dev, "float32", max_obs=NP - 12, s=S_MAIN)
+        for Gs in ESM_CROSSOVER_G:
+            args = acquire.esm_fused_inputs(bq.state, bq.options, torch.linspace(-4.0, 4.0, Gs, device=dev)[:, None])
+            t = {}
+            for tiled in (False, True, True, False):
+                t.setdefault(tiled, []).append(cuda_ms(lambda: hk._esm_fused_launch(*args, tiled=tiled), 10))
+            cross[f"NP{NP}_G{Gs}"] = dict(per_point_ms=min(t[False]), tiled_ms=min(t[True]), turns=t)
+    out["esm_crossover"] = dict(tiled_from=hk.ESM_TILED_FROM, **cross)
     return out
 
 
 def large_timing(dev, label: str) -> dict:
     """CUDA-event times of the four kernels of the large-N path, their plain
     versions and the library call beside each, at the path's max_obs 1024
-    shapes (tri_solve_blocked and cholesky_batched in two turns with their
-    library calls, kernel then library, the faster turn of each reported),
-    with their bounds; and the refit / incremental sweep: host ms per closed-loop step of
+    shapes (cholesky_blocked, tri_solve_blocked and cholesky_batched in two
+    turns with their library calls, kernel then library, the faster turn of
+    each reported; cholesky_blocked also at LARGE_CHOL_TIMING_N and beside
+    cholesky_batched on a (1, n, n) stack), with their bounds; esm_fused at
+    the path's scoring shapes and its crossover (``esm_timing``); and the
+    refit / incremental sweep: host ms per closed-loop step of
     run_active_loop (8 steps, record_moments=False, turns refit, incremental,
     incremental, refit) and per add at an interior point, at max_obs 64 … 1024."""
     import torch
@@ -1597,11 +1679,20 @@ def large_timing(dev, label: str) -> dict:
     kern = {}
     kern["gaussian_gram"] = dict(shape=f"({n}, {n}), d = 1", kernel_ms=cuda_ms(lambda: hk.gaussian_gram(th, x, x), 200),
                                  plain_ms=cuda_ms(lambda: hk.gaussian_gram_plain(th, x, x), 50), library_ms=None)
-    for N in (n, ns):
+    for N in LARGE_CHOL_TIMING_N:
         A = path_gram(rng, N, dev)
+        # each call in turn (kernel, library, cholesky_batched on a (1, N, N) stack), 20 calls a turn
+        k_ms, lib_ms, b1_ms = [], [], []
+        for _ in range(2):
+            k_ms.append(cuda_ms(lambda: hk.cholesky_blocked(A), 20))
+            lib_ms.append(cuda_ms(lambda: torch.linalg.cholesky_ex(A), 20))
+            b1_ms.append(cuda_ms(lambda: hk.cholesky_batched(A[None]), 20))
+        # bytes: A and L once; operations: N³/3 multiply-adds
         kern[f"cholesky_blocked_{N}"] = dict(
-            kernel_ms=cuda_ms(lambda: hk.cholesky_blocked(A), 20), plain_ms=cuda_ms(lambda: hk.cholesky_blocked_plain(A), 1),
-            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A), 20), launches_per_call=hk.cholesky_blocked_launches(N))
+            kernel_ms=min(k_ms), kernel_ms_turns=k_ms, plain_ms=cuda_ms(lambda: hk.cholesky_blocked_plain(A), 1, warmup=0),
+            library_ms=min(lib_ms), library_ms_turns=lib_ms, batched_b1_ms=min(b1_ms), batched_b1_ms_turns=b1_ms,
+            launches_per_call=hk.cholesky_blocked_launches(N), **bound(2 * 4 * N * N, N**3 / 3))
+    kern.update(esm_timing(dev))
     L = torch.linalg.cholesky(path_gram(rng, n, dev)).contiguous()
     for M in (n, 1, 3, 100):
         R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
@@ -1852,6 +1943,18 @@ def fleet_timing(dev, fk: dict, fp: dict, mp: dict, label: str) -> dict:
     return res
 
 
+def large_esm_entry(lp: dict, lt: dict) -> dict:
+    """The esm_fused entry's fields at the large-N path's shapes: its
+    launches on that path, its error against the twin on the max_obs 1024
+    states, and per ESM_LARGE_SHAPES its time, bound, twin and plain scorer."""
+    out = dict(large_n_launches=lp["launches"]["esm_fused"], large_n_max_abs_err=lp["esm_max_abs_err"])
+    for key, v in lt["kernels"].items():
+        if key.startswith("esm_fused_G"):
+            out[f"at_{key[len('esm_fused_'):]}"] = {k: v[k] for k in ("kernel_ms", "plain_ms", "plain_scorer_ms",
+                                                                       "bound_ms", "bound_by", "launches_per_call")}
+    return out
+
+
 def large_kernel_entries(lp: dict, lk: dict, lt: dict) -> list:
     """The kernels-line entries of the large-N path's four kernels at its
     max_obs 1024 shapes: the linear GP's Gram and factor (n = 1036), its K⁻¹
@@ -1877,8 +1980,10 @@ def large_kernel_entries(lp: dict, lk: dict, lt: dict) -> list:
         dict(name="cholesky_blocked", route="cuda", source="tpubq_torch/csrc/chol_blocked.cu",
              replaces="tpubq/ops/pallas_kernels.py:511", launches=lp["launches"]["cholesky_blocked"],
              max_abs_err=lk["cholesky_blocked"], ms=cb_t["kernel_ms"], plain_ms=cb_t["plain_ms"],
-             **bound(2 * 4 * gn * gn, gn**3 / 3), library_ms=cb_t["library_ms"], shape=f"({gn}, {gn})",
-             dependent_steps=gn, launches_per_call=cb_t["launches_per_call"]),
+             bound_ms=cb_t["bound_ms"], bound_by=cb_t["bound_by"], library_ms=cb_t["library_ms"],
+             shape=f"({gn}, {gn})", dependent_steps=gn, launches_per_call=cb_t["launches_per_call"],
+             batched_b1_ms=cb_t["batched_b1_ms"],
+             **{f"at_{N}": at(kt[f"cholesky_blocked_{N}"]) for N in LARGE_CHOL_TIMING_N if N != gn}),
         dict(name="tri_solve_blocked", route="cuda", source="tpubq_torch/csrc/tri_solve_blocked.cu",
              replaces="tpubq/ops/pallas_kernels.py:563", launches=lp["launches"]["tri_solve_blocked"],
              max_abs_err=lk["tri_solve_blocked"], ms=ts_t["kernel_ms"], plain_ms=ts_t["plain_ms"],
@@ -1933,8 +2038,6 @@ def main() -> int:
     # against the HBM rate; float32 operations (an expf counted as one) against the
     # float32 peak. d = 1, NP = max_obs + n_candidate, NP2 = max_obs.
     NP, NP2 = mp["bq"].options.max_nsc, mp["bq"].options.max_obs
-    esm_bytes = 4 * (12 + G + 4 * NP + NP * NP + 3 * NP2 + NP2 * NP2 + G)
-    esm_ops = G * (2 * NP * NP + 2 * NP2 * NP2 + 12 * (NP + NP2) + 40)
     cB, cn = 200, 32  # marginalize(n=100): the two-rung stack of 100 Grams
     mB, mn = FIT_RESTARTS, NP  # the linear GP's fit; the log-GP's is (10, NP2)
     mll_ops = mB * (4 * mn**3 // 3 + 27 * mn * mn)  # Cholesky, L⁻¹, YᵀY, Gram and traces
@@ -1954,8 +2057,8 @@ def main() -> int:
         dict(name="esm_fused", route="cuda", source="tpubq_torch/csrc/esm_fused.cu",
              replaces="tpubq/ops/pallas_kernels.py:440", launches=mp["launches"]["esm_fused"],
              max_abs_err=max(esm["max_abs_err"], mp["esm_max_abs_err"]), ms=t["esm_fused_ms"],
-             plain_ms=t["esm_fused_plain_ms"], **bound(esm_bytes, esm_ops), library_ms=None,
-             shape=f"G={G}, NP={NP}, NP2={NP2}"),
+             plain_ms=t["esm_fused_plain_ms"], **bound(esm_bytes(G, NP, NP2), esm_ops(G, NP, NP2)), library_ms=None,
+             shape=f"G={G}, NP={NP}, NP2={NP2}", **large_esm_entry(lp, lt)),
         dict(name="chol_batch", route="cuda", source="tpubq_torch/csrc/chol_batch.cu",
              replaces="tpubq/ops/pallas_kernels.py:641", launches=mp["launches"]["chol_batch"],
              max_abs_err=chol["max_abs_err"], ms=chol_t["kernel_ms"], plain_ms=chol_t["plain_ms"],

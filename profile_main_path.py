@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 profile_main_path.py [--out profile_main_path.txt]
+    python3 profile_main_path.py [--out profile_main_path.txt] [--root DIR] [--kernels]
 
 Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 10,000-point grid, three active steps taken first):
@@ -30,6 +30,14 @@ profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
 busy time under ``torch.profiler`` (the union of the kernels' intervals on the
 device timeline), the idle share 1 − busy / wall, and the kernel count. The
 per-operator tables go to ``--out``. Imports nothing from JAX.
+
+``--kernels`` times kernels alone instead (CUDA events, two turns each):
+``cholesky_blocked`` at n ∈ KERNEL_CHOL_NS beside ``cholesky_batched`` on a
+(1, n, n) stack and ``torch.linalg.cholesky_ex``, and ``esm_fused`` at the
+main path's (G 10⁴, NP 44) and the large-N path's (G 512, NP 1036) states.
+``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
+say), so that two versions of the kernels are timed by the same code in one
+call: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -37,11 +45,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
+import sys
 
 import numpy as np
 
 import chip_smoke as cs
+
+KERNEL_CHOL_NS = (32, 44, 128, 300, 1024, 1036)
 
 
 def busy_us(events) -> tuple[float, int]:
@@ -82,12 +92,22 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="profile_main_path.txt")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--root", default=None, help="import tpubq_torch from this directory")
+    ap.add_argument("--kernels", action="store_true", help="time the kernels alone")
     args = ap.parse_args()
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA device")
+    import tpubq_torch
+
     dev = torch.device("cuda", 0)
     label = cs.nvidia_smi()
-    print(json.dumps({"card": label, "torch": torch.__version__}), flush=True)
+    print(json.dumps({"card": label, "torch": torch.__version__,
+                      "tpubq_torch": os.path.relpath(os.path.dirname(tpubq_torch.__file__))}), flush=True)
+    if args.kernels:
+        kernel_times(dev, label)
+        return 0
 
     grid = np.linspace(-4.0, 4.0, cs.G)
     bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
@@ -124,6 +144,34 @@ def main() -> int:
         profile_large_n(dev, args.iters, out)
     bq._state = st
     return 0
+
+
+def kernel_times(dev, label: str) -> None:
+    """One JSON line per kernel shape: CUDA-event ms per call in two turns
+    (kernel, then the calls beside it), on the inputs chip_smoke.py builds."""
+    import torch
+
+    from tpubq_torch.models import acquire
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    rng = np.random.RandomState(9)
+    for n in KERNEL_CHOL_NS:
+        A = cs.path_gram(rng, n, dev)
+        turns = {"cholesky_blocked": [], "cholesky_batched_b1": [], "cholesky_ex": []}
+        for _ in range(2):
+            turns["cholesky_blocked"].append(cs.cuda_ms(lambda: hk.cholesky_blocked(A), 50))
+            turns["cholesky_batched_b1"].append(cs.cuda_ms(lambda: hk.cholesky_batched(A[None]), 50))
+            turns["cholesky_ex"].append(cs.cuda_ms(lambda: torch.linalg.cholesky_ex(A), 50))
+        print(json.dumps({"kernel": "cholesky_blocked", "card": label, "n": n, "ms_turns": turns,
+                          "ms": {k: min(v) for k, v in turns.items()}}), flush=True)
+    st, opts = cs.large_state(dev, 1024, "float32")
+    big = acquire.esm_fused_inputs(st, opts, torch.linspace(-4.0, 4.0, cs.LARGE_G, device=dev)[:, None])
+    small_bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
+    small = acquire.esm_fused_inputs(small_bq.state, small_bq.options, torch.linspace(-4.0, 4.0, cs.G, device=dev)[:, None])
+    for name, args, iters in (("G512_NP1036", big, 5), ("G10000_NP44", small, 200)):
+        turns = [cs.cuda_ms(lambda: hk.esm_fused(*args), iters) for _ in range(2)]
+        print(json.dumps({"kernel": "esm_fused", "card": label, "shape": name, "NP": args[2].shape[0],
+                          "G": args[1].shape[0], "ms_turns": turns, "ms": min(turns)}), flush=True)
 
 
 def profile_large_n(dev, iters: int, out) -> None:

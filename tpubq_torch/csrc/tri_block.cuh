@@ -1,9 +1,10 @@
-// Pieces shared by the one-launch triangular solve (tri_solve_blocked.cu) and
-// the panelled batched Cholesky (chol_batched.cu): the inverse of a lower
-// triangular diagonal block by recursive doubling, the clamped column
-// factorization of a diagonal block, a 64 x 64 x 64 float32 FMA tile, and the
-// flags and ready-marked words through which the solve's work items wait for
-// each other. None of chol_columns.cuh's helpers is used or changed here.
+// Pieces shared by the one-launch triangular solve (tri_solve_blocked.cu), the
+// one-launch blocked Cholesky (chol_blocked.cu) and the panelled batched
+// Cholesky (chol_batched.cu): the inverse of a lower triangular diagonal
+// block by recursive doubling, the clamped column factorization of a
+// diagonal block, a 64 x 64 x 64 float32 FMA tile, and the flags and
+// ready-marked words through which the one-launch kernels' work items wait
+// for each other. None of chol_columns.cuh's helpers is used here.
 
 #pragma once
 

@@ -13,13 +13,14 @@ and under the log-GP posterior tl_a ~ N(m_a, c_a), ℓ = γ(e^{tl} − 1):
 Degenerate x_a (within candidate_thresh of a live point, or γ_s below its
 noise floor) score Z_mean².
 
-Dispatch (``esm_route``, from shapes before any launch): float32 scores
-with the fused ``esm_fused`` kernel (on a CUDA device; its plain twin on the
-CPU) wherever ``esm_fused_supported`` covers the state's sizes. Eager
-PyTorch has no fuser, so the plain path below writes several (nsc × G)
-intermediates to device memory per sweep; it scores the larger float32
-states (about max_obs ≥ 1,480 at d = 1), as the JAX package scores every
-size, and float64 (the cho_solve parity contract).
+Dispatch (``esm_route``, from shapes before any launch): every float32
+gaussian state scores with the fused ``esm_fused`` kernel (on a CUDA device;
+its plain twin on the CPU) — one thread per grid point for small states, the
+quadratic forms as tiled products from ``hopper_kernels.ESM_TILED_FROM`` rows
+up, with no cap on the state's size. The plain path below
+(``expected_squared_mean_xla``, several (nsc × G) intermediates in device
+memory per sweep) scores float64 (the cho_solve parity contract) and the
+kernels ``esm_fused`` does not take (d > 3).
 """
 
 from __future__ import annotations
@@ -195,8 +196,8 @@ def esm_fused_inputs(state: BQState, opts: BQOptions, x_a):
 
 def esm_route(state: BQState, opts: BQOptions) -> str:
     """The scorer ``expected_squared_mean`` takes for one problem:
-    "esm_fused" for a float32 gaussian state whose sizes ``esm_fused``
-    covers, else "plain" (``expected_squared_mean_xla``)."""
+    "esm_fused" for a float32 gaussian state at d ≤ 3 (any size), else
+    "plain" (``expected_squared_mean_xla``)."""
     NP, NP2 = state.x_sc.shape[-2], state.x_s.shape[-2]
     if (state.x_s.dtype == torch.float32 and opts.kernel == "gaussian"
             and hk.esm_fused_supported(NP, NP2, opts.dim)):

@@ -6,8 +6,8 @@ weak N(0, prior_std²) prior on each coordinate, driven by an explicit
 ``torch.Generator``; its control flow is sequential host code, one
 ``.item()`` per log-density evaluation. ``marginalize`` evaluates the
 estimators under all samples as one batch: (B, p) hypers → (B, n, n) Grams →
-one batched rung-stack Cholesky (``chol_batch`` on a CUDA device) → batched
-Z moments.
+one batched rung-stack Cholesky (on a CUDA device ``chol_batch`` up to 240
+rows, ``cholesky_batched`` above) → batched Z moments.
 """
 
 from __future__ import annotations

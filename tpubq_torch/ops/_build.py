@@ -35,9 +35,10 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ip = ctypes.POINTER(ctypes.c_int)
 _SIG = {
     "tpubq_esm_fused": (
-        [_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p],
+        [_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _p, _p],
         _i,
     ),
+    "tpubq_esm_tiled": ([_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p], _i),
     "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _i, _p], _i),
     "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p], _i),
     "tpubq_esm_fleet_l": (
@@ -46,7 +47,7 @@ _SIG = {
     ),
     "tpubq_esm_fleet_tl": ([_p, _p, _p, _i, _i, _p, _p, _p, _p, _i, _i, _i, _i, _p, _p, _p], _i),
     "tpubq_gaussian_gram": ([_p, _p, _p, _i, _i, _i, _p, _p], _i),
-    "tpubq_chol_blocked": ([_p, _p, _p, _p, _p, _i, _ip, _p], _i),
+    "tpubq_chol_blocked": ([_p, _p, _p, _p, _p, _i, _p], _i),
     "tpubq_tri_solve_blocked": ([_p, _p, _p, _p, _i, _i, _p], _i),
     "tpubq_chol_batched": ([_p, _p, _p, _p, _p, _i, _i, _i, _ip, _p], _i),
 }

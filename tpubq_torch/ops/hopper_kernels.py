@@ -3,7 +3,9 @@
 Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
 
 * ``esm_fused`` (``csrc/esm_fused.cu``) ← ``tpubq/ops/pallas_kernels.py``
-  ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``.
+  ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``;
+  one thread per grid point for small states, the two quadratic forms as
+  tiled products for large ones (``ESM_TILED_FROM``).
 * ``chol_batch`` (``csrc/chol_batch.cu``) ← ``cholesky_batch_major``: the
   batched float32 Cholesky behind ``marginalize``.
 * ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
@@ -19,8 +21,9 @@ Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
 * ``cholesky_blocked`` (``csrc/chol_blocked.cu``) ← ``cholesky_blocked`` and
   ``tri_solve_blocked`` (``csrc/tri_solve_blocked.cu``) ←
   ``tri_solve_blocked``: the factor and the triangular solves of one large
-  matrix, behind the unbatched float32 refits (``linalg``); the solve is one
-  launch whose row blocks wait for each other through flags in device memory.
+  matrix, behind the unbatched float32 refits (``linalg``); each is one
+  launch whose tiles or row blocks wait for each other through flags in
+  device memory.
 * ``cholesky_batched`` (``csrc/chol_batched.cu``) ← ``cholesky_batched``: the
   panelled batched factorization above ``chol_batch``'s shared-memory limit.
 
@@ -28,9 +31,10 @@ A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its CUDA kernel
 launches in a plain integer attribute (``esm_fused.launches``, …,
 ``tri_solve_blocked.launches``), incremented where the kernel is launched and
-nowhere else; ``cholesky_blocked`` and ``cholesky_batched`` make several
-launches per call (``cholesky_blocked_launches``,
-``cholesky_batched_launches``; ``tri_solve_blocked_launches`` is one).
+nowhere else; ``esm_fused`` (its tiled design) and ``cholesky_batched`` make
+several launches per call (``esm_fused_launches``,
+``cholesky_batched_launches``; ``cholesky_blocked_launches`` and
+``tri_solve_blocked_launches`` are one).
 Callers choose a kernel route from shapes, dtype and device before any
 launch (``kernel_route``). Nothing here imports a CUDA toolchain at import
 time: the library is built by ``_build`` on the first launch.
@@ -48,6 +52,8 @@ __all__ = [
     "esm_fused",
     "esm_fused_plain",
     "esm_fused_supported",
+    "esm_fused_launches",
+    "ESM_TILED_FROM",
     "chol_batch",
     "chol_batch_plain",
     "chol_batch_supported",
@@ -96,35 +102,55 @@ def esm_params_len(d: int) -> int:
 
 
 def _esm_launch_config(NP: int, NP2: int, d: int):
-    """(threads, kinv_in_smem, smem_bytes) of an ``esm_fused`` launch, or None.
-
-    Shared memory holds each thread's k buffer (max(NP, NP2) floats), the
-    problem's vectors and, where they fit, K⁻¹ and K_tl⁻¹. The largest block
-    that fits with both inverses in shared memory wins; failing that, the
-    inverses are read from device memory through L1.
-    """
-    npmax = max(NP, NP2)
-    vec = esm_params_len(d) + NP * (d + 3) + NP2 * (d + 2)
-    mats = NP * NP + NP2 * NP2
-    for kinv_in_smem in (1, 0):
-        for t in _ESM_THREADS:
-            floats = npmax * t + vec + (mats if kinv_in_smem else 0)
-            if 4 * floats <= SMEM_LIMIT:
-                return t, kinv_in_smem, 4 * floats
+    """(threads, smem_bytes) of a one-thread-per-point ``esm_fused`` launch,
+    or None: shared memory holds each thread's k buffer (max(NP, NP2)
+    floats), the problem's vectors, K⁻¹ and K_tl⁻¹; the largest block that
+    fits wins."""
+    floats = esm_params_len(d) + NP * (d + 3) + NP2 * (d + 2) + NP * NP + NP2 * NP2
+    for t in _ESM_THREADS:
+        if 4 * (max(NP, NP2) * t + floats) <= SMEM_LIMIT:
+            return t, 4 * (max(NP, NP2) * t + floats)
     return None
 
 
+#: From this many rows of the larger GP (max(NP, NP2)) up, ``esm_fused``
+#: takes its tiled design (two launches); below, one thread per grid point
+#: (one launch). On the H100 the per-point design won at NP 24 and 28 and the
+#: tiled one from NP 44 up in every run, on 512- and 10⁴-point grids alike;
+#: at NP 36 the runs split (``chip_smoke.py``'s ``esm_crossover``; PERF.md §6,
+#: PR 6).
+ESM_TILED_FROM = 40
+#: Rows and columns of one tile of the tiled design (grid points × columns of
+#: K⁻¹), and its partials per point and column tile of each GP.
+_ESM_TILE = 64
+_ESM_FIELDS = (5, 2)
+
+
+def _esm_tiled(NP: int, NP2: int, d: int) -> bool:
+    """Whether ``esm_fused`` takes its tiled design at these sizes: from
+    ``ESM_TILED_FROM`` rows up, and wherever the per-point design's k buffers
+    do not fit in shared memory."""
+    return max(NP, NP2) >= ESM_TILED_FROM or _esm_launch_config(NP, NP2, d) is None
+
+
+def esm_fused_launches(NP: int, NP2: int, d: int) -> int:
+    """CUDA launches of one ``esm_fused`` call: 2 for the tiled design (the
+    tiles, then the per-point finish), 1 for one thread per grid point."""
+    return 2 if _esm_tiled(NP, NP2, d) else 1
+
+
 def esm_fused_supported(NP: int, NP2: int, d: int) -> bool:
-    """Whether ``esm_fused`` covers these sizes: d ≤ 3 and 32 k-buffers of
-    max(NP, NP2) floats plus the problem's vectors within 227 KB of shared
-    memory — max(NP, NP2) up to about 1,700 at d = 1."""
-    return 1 <= d <= 3 and _esm_launch_config(NP, NP2, d) is not None
+    """Whether ``esm_fused`` covers these sizes: d ≤ 3, any NP and NP2 (the
+    tiled design streams K⁻¹ and K_tl⁻¹ from device memory, so only the
+    scratch the wrapper allocates, (5⌈NP/64⌉ + 2⌈NP2/64⌉) floats per grid
+    point, limits the sizes)."""
+    return 1 <= d <= 3
 
 
 def chol_batch_supported(n: int) -> bool:
     """Whether one n × n float32 matrix (plus its n pivots) fits the 227 KB of
-    shared memory of one block: n ≤ 240. Larger matrices go to the library
-    Cholesky."""
+    shared memory of one block: n ≤ 240. Larger matrices go to
+    ``cholesky_batched``."""
     return 4 * (n * n + n) <= SMEM_LIMIT
 
 
@@ -245,26 +271,43 @@ def esm_fused(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl
         return esm_fused_plain(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl)
     if grid.device.type != "cuda":
         raise ValueError(f"esm_fused: unsupported device {grid.device}")
-    cfg = _esm_launch_config(NP, NP2, d)
-    if cfg is None:
-        raise ValueError(
-            f"esm_fused: NP={NP}, NP2={NP2} exceed the shared-memory budget "
-            "(see esm_fused_supported)"
-        )
+    return _esm_fused_launch(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl,
+                             tiled=_esm_tiled(NP, NP2, d))
+
+
+def _esm_fused_launch(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl, tiled: bool):
+    """Launch one design of ``esm_fused`` on checked CUDA inputs (the
+    wrapper picks ``tiled``; ``chip_smoke.py`` times both to place
+    ``ESM_TILED_FROM``)."""
+    G, d = grid.shape
+    NP, NP2 = xsc.shape[0], xs.shape[0]
     out = torch.empty((G,), dtype=torch.float32, device=grid.device)
     if G == 0:
         return out
+    if G >= 2**31 - _ESM_TILE:
+        raise ValueError(f"esm_fused: too many grid points ({G}) for one launch")
     from tpubq_torch.ops import _build
 
     lib = _build.library()
+    ptrs = (params.data_ptr(), grid.data_ptr(), G, d, xsc.data_ptr(), msc.data_ptr(), Kinv.data_ptr(),
+            uz.data_ptr(), alpha.data_ptr(), NP, xs.data_ptr(), ms.data_ptr(), Kinv_tl.data_ptr(),
+            alpha_tl.data_ptr(), NP2)
     with torch.cuda.device(grid.device):
-        err = lib.tpubq_esm_fused(
-            params.data_ptr(), grid.data_ptr(), G, d, xsc.data_ptr(), msc.data_ptr(),
-            Kinv.data_ptr(), uz.data_ptr(), alpha.data_ptr(), NP, xs.data_ptr(),
-            ms.data_ptr(), Kinv_tl.data_ptr(), alpha_tl.data_ptr(), NP2, *cfg,
-            out.data_ptr(), _stream_ptr(grid),
-        )
-        esm_fused.launches += 1
+        if tiled:
+            tiles = [(n + _ESM_TILE - 1) // _ESM_TILE for n in (NP, NP2)]
+            if max(tiles) > 65535:
+                raise ValueError(f"esm_fused: NP={NP}, NP2={NP2}: more than 65,535 column tiles")
+            Gp = (G + _ESM_TILE - 1) // _ESM_TILE * _ESM_TILE
+            part = torch.empty((sum(f * t for f, t in zip(_ESM_FIELDS, tiles)), Gp), dtype=torch.float32,
+                               device=grid.device)
+            err = lib.tpubq_esm_tiled(*ptrs, part.data_ptr(), out.data_ptr(), _stream_ptr(grid))
+            esm_fused.launches += 2
+        else:
+            cfg = _esm_launch_config(NP, NP2, d)
+            if cfg is None:
+                raise ValueError(f"esm_fused: NP={NP}, NP2={NP2} exceed the per-point design's shared memory")
+            err = lib.tpubq_esm_fused(*ptrs, *cfg, out.data_ptr(), _stream_ptr(grid))
+            esm_fused.launches += 1
     _check(err, "esm_fused")
     return out
 
@@ -766,19 +809,16 @@ gaussian_gram.launches = 0
 # cholesky_blocked / tri_solve_blocked (one large matrix)
 # ---------------------------------------------------------------------------
 
-#: Panel width of the blocked kernels (the TPU kernels' default block).
-PANEL = 128
-
-
-def _panels(n: int) -> int:
-    return (n + PANEL - 1) // PANEL
+#: Tile of ``cholesky_blocked``: the 64 × 64 tiles of the factor's lower
+#: triangle are the work items of its one launch.
+CHOL_TILE = 64
 
 
 def cholesky_blocked_launches(n: int) -> int:
-    """CUDA launches of one ``cholesky_blocked`` call on an n × n matrix: per
-    panel the diagonal block, and below all but the last the panel product
-    and the trailing update — 3·⌈n/128⌉ − 2."""
-    return 3 * _panels(n) - 2 if n > 0 else 0
+    """CUDA launches of one ``cholesky_blocked`` call on an n × n matrix: one
+    (the tiles wait for each other through flags, not through stream
+    order)."""
+    return 1 if n > 0 else 0
 
 
 def tri_solve_blocked_launches(n: int) -> int:
@@ -861,11 +901,35 @@ def cholesky_batched_plain(Ks: torch.Tensor, panel: int = CHOL_BATCHED_PANEL) ->
     return torch.where(clamped[:, None, None], torch.full_like(L, float("nan")), L)
 
 
-def cholesky_blocked_plain(A: torch.Tensor) -> torch.Tensor:
-    """``cholesky_blocked`` in torch ops (the unblocked column recursion with
-    the clamped pivot, NaN where a pivot was clamped)."""
-    L, clamped = _chol_columns_plain(A[None], clamp_pivot=True, report_clamps=True)
-    return torch.where(clamped[:, None, None], torch.full_like(L, float("nan")), L)[0]
+def cholesky_blocked_plain(A: torch.Tensor, tile: int = CHOL_TILE) -> torch.Tensor:
+    """``cholesky_blocked`` in torch ops, tile by tile as the kernel runs:
+    column by column of ``tile``-wide tiles, each lower tile
+    S_ij = A_ij − Σ_{k<j} L_ik L_jkᵀ (k in order); the diagonal tile factored
+    by the clamped column recursion (which the kernel blocks into 16-wide
+    leaves), its inverse Y_jj by ``lower_inverse_doubling``, the tiles below
+    it L_ij = S_ij Y_jjᵀ; NaN where a pivot was clamped. Only the lower
+    triangle is read; ``tile`` is 16 · 2^k."""
+    n = A.shape[0]
+    L = torch.zeros_like(A)
+    clamped = torch.zeros(1, dtype=torch.bool, device=A.device)
+    for j0 in range(0, n, tile):
+        wj = min(tile, n - j0)
+        Y = None
+        for i0 in range(j0, n, tile):
+            wi = min(tile, n - i0)
+            S = A[i0:i0 + wi, j0:j0 + wj]
+            S = torch.tril(S) if i0 == j0 else S.clone()
+            for k0 in range(0, j0, tile):
+                S = S - L[i0:i0 + wi, k0:k0 + tile] @ L[j0:j0 + wj, k0:k0 + tile].T
+            if i0 == j0:
+                Ljj, cl = _chol_columns_plain(S[None], clamp_pivot=True, report_clamps=True)
+                L[j0:j0 + wj, j0:j0 + wj] = Ljj[0]
+                clamped |= cl
+                if j0 + wj < n:  # only the last tile can be ragged
+                    Y = lower_inverse_doubling(Ljj[0])
+            else:
+                L[i0:i0 + wi, j0:j0 + wj] = S @ Y.T
+    return torch.where(clamped, torch.full_like(L, float("nan")), L)
 
 
 def _check_square(name: str, A: torch.Tensor, ndim: int) -> None:
@@ -878,11 +942,14 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of one (N, N) float32 matrix, exact zeros above
     the diagonal; only the lower triangle is read.
 
-    Right-looking blocked factorization with 128-wide panels
-    (``cholesky_blocked_launches(N)`` CUDA launches). The pivot is clamped at
-    tiny and a clamped factor comes back NaN: a matrix that is not positive
-    definite gives a NaN factor, the contract of the library Cholesky that
-    the jitter ladder reads. No host sync.
+    One CUDA launch (``cholesky_blocked_launches(N)``): the 64 × 64 tiles of
+    the lower triangle as work items, taken in tile-column-major order from a
+    ticket counter, each waiting on the tiles it reads through flags in
+    device memory (zeroed scratch from ``torch.zeros``); left-looking, with
+    sums in a fixed order, so two calls on the same inputs give the same
+    bits. The pivot is clamped at tiny and a clamped factor comes back NaN: a
+    matrix that is not positive definite gives a NaN factor, the contract of
+    the library Cholesky that the jitter ladder reads. No host sync.
     """
     _check_square("cholesky_blocked", A, 2)
     _check_f32("cholesky_blocked", A.device, A=A)
@@ -894,19 +961,19 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(A)
     if N == 0:
         return L
+    T = (N + CHOL_TILE - 1) // CHOL_TILE
     from tpubq_torch.ops import _build
 
-    work = torch.empty_like(A)
-    Yd = torch.empty((PANEL, PANEL), dtype=torch.float32, device=A.device)
-    flag = torch.empty((1,), dtype=torch.int32, device=A.device)
-    launches = ctypes.c_int(0)
+    Yt = torch.empty((max(T - 1, 1), CHOL_TILE, CHOL_TILE), dtype=torch.float32, device=A.device)
+    Ps = torch.empty((max(T - 1, 1), CHOL_TILE, CHOL_TILE + 4), dtype=torch.float32, device=A.device)
+    sync = torch.zeros((2 + T * (T + 1) // 2 + T,), dtype=torch.int32, device=A.device)
     lib = _build.library()
     with torch.cuda.device(A.device):
-        err = lib.tpubq_chol_blocked(A.data_ptr(), work.data_ptr(), L.data_ptr(), Yd.data_ptr(),
-                                     flag.data_ptr(), N, ctypes.byref(launches), _stream_ptr(A))
-        cholesky_blocked.launches += launches.value
+        err = lib.tpubq_chol_blocked(A.data_ptr(), L.data_ptr(), Yt.data_ptr(), Ps.data_ptr(), sync.data_ptr(), N,
+                                     _stream_ptr(A))
+        cholesky_blocked.launches += 1
     _check(err, "cholesky_blocked")
-    return torch.where(flag.bool(), torch.full_like(L, float("nan")), L)
+    return L
 
 
 cholesky_blocked.launches = 0

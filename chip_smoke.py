@@ -45,17 +45,18 @@ before the final line):
               mode it resolves to; esm_fused held to its twin on the states
               the max_obs 1024 refit loop scored. Then which scorer each
               state size takes (max_obs 32, 1024, 2048: esm_fused at every
-              size), card against CPU.
+              size), card against CPU; and esm_fused against its twin on the
+              recipe's max_obs 2048 state (NP 2060), with the float64 γ of
+              every point where the two differ.
 6. s = 0    — printed, not gated: how many active steps the float32 log-GP
               Gram survives at s = 0 before rung 0 of the jitter ladder fails,
               with fixed hypers, after one fit, and with a refit every step.
 7. timing   — CUDA-event times of each kernel, its plain twin and the library
               call or nearest plain route beside it, and host-clock times of
               fit_hypers, add_observation, marginalize and the fleet's calls
-              at B = 1, 8 and 64; esm_fused at the large-N path's shapes and
-              the crossover of its two designs (ESM_TILED_FROM);
-              cholesky_blocked at n = 32 … 1036 beside cholesky_ex and
-              cholesky_batched on a (1, n, n) stack; the refit / incremental
+              at B = 1, 8 and 64; esm_fused at the large-N path's shapes;
+              cholesky_blocked at n = 32 … 1036 beside cholesky_ex; the
+              refit / incremental
               sweep (ms per step at max_obs 64 … 1024) that
               INCREMENTAL_AUTO_WINDOW is read from.
 
@@ -302,8 +303,8 @@ def check_esm(dev) -> dict:
 
     grid = torch.linspace(-4.0, 4.0, G, device=dev)[:, None]
     cases = []
-    # (NP, NP2) = (44, 32) — the main path's —, (48, 32) and (80, 64)
-    for max_obs, n_cand in ((32, 12), (32, 16), (64, 16)):
+    # (NP, NP2) = (28, 16), (44, 32) — the main path's —, (48, 32) and (80, 64)
+    for max_obs, n_cand in ((16, 12), (32, 12), (32, 16), (64, 16)):
         for near_dup in (False, True):
             bq = make_bq(testbed_x(near_dup), dev, "float32", max_obs=max_obs, n_candidate=n_cand)
             args = acquire.esm_fused_inputs(bq.state, bq.options, grid)
@@ -1185,10 +1186,9 @@ LARGE_TIMING_BATCHED = ((200, 256), (200, 1024))
 # log-GP's 1024 at max_obs 1024
 LARGE_CHOL_TIMING_N = (32, 44, 128, 300, 1024, 1036)
 # esm_fused at the large-N path's scored shape (G 512, max_obs 1024) and on a
-# 10⁴-point grid; the crossover between its two designs at NP = max_obs + 12
+# 10⁴-point grid
 ESM_LARGE_SHAPES = ((LARGE_G, 1024), (10_000, 1024))
-ESM_CROSSOVER_NP = (24, 28, 36, 44, 76)
-ESM_CROSSOVER_G = (10_000, LARGE_G)
+ESM_2060_G = 777  # random points scored on the max_obs 2048 state (a ragged grid)
 GRAM_TOL = 1e-6  # max|Δ| / h²: expf against torch.exp, a few float32 ulps
 
 
@@ -1577,8 +1577,8 @@ def esm_size_routes(dev) -> dict:
     card's float32 scores held to the CPU's float32 scores on the same route
     at 1e-4 of the largest score, off at most 2 points (degenerate-mask flips
     between two float32 evaluations): the testbed's 10 points at max_obs 32,
-    1024 and 2048. Every size takes esm_fused: one launch at max_obs 32, two
-    (the tiled design, which streams the inverses) at 1024 and 2048."""
+    1024 and 2048. Every size takes esm_fused, two launches a sweep (the
+    kernel streams the inverses, so no state is too large for it)."""
     import torch
 
     from tpubq_torch.models import acquire
@@ -1600,8 +1600,55 @@ def esm_size_routes(dev) -> dict:
     check(all(r["route"] == "esm_fused" for r in out.values()), "max_obs 32, 1024 and 2048 take esm_fused")
     check(all(r["esm_fused_launches"] == hk.esm_fused_launches(r["NP"], m, 1) for m, r in out.items()),
           f"one esm_fused call per sweep, at its launch count ({out})")
-    check(out[2048]["esm_fused_launches"] == 2, "max_obs 2048 takes esm_fused's tiled design")
     check(all(r["points_off"] <= 2 for r in out.values()), f"card scores ≡ CPU scores on every route ({out})")
+    return out
+
+
+def esm_beyond_1024(dev) -> dict:
+    """esm_fused against its twin on the large-N recipe's max_obs 2048 state
+    (NP 2060, NP2 2048) on ESM_2060_G random points in [−3, 3]. Under the
+    production guard: within ESM_NORM_TOL of the largest score except at
+    most max(MAX_FLIPS, 1% of the grid) points, each with its float64 γ
+    within float32's noise λ·ρ·κ·Σk of the threshold (``flip_margins``): a
+    flip, or a point just past the guard whose B = (ζ − zᵀK⁻¹k)/γ carries γ's
+    rounding. Under the TPU kernel's own eps·κ guard, printed, not gated: how
+    many points differ beyond ESM_NORM_TOL and how far above float32's noise
+    their γ reaches (γ / λρκΣk), the witness that those scores are a quotient
+    by rounding noise in both evaluations."""
+    import torch
+
+    from tpubq_torch.models import acquire
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    st, opts = large_state(dev, 2048, "float32")
+    rng = np.random.RandomState(ESM_2060_G)
+    grid = torch.as_tensor(rng.uniform(-3.0, 3.0, (ESM_2060_G, 1)), dtype=torch.float32, device=dev)
+    args = list(acquire.esm_fused_inputs(st, opts, grid))
+    nm = args[0][-1].item()
+    out = {}
+    for guard in ("adaptive", "tpu"):
+        if guard == "tpu":
+            args[0] = args[0].clone()
+            args[0][-1] = 0.0
+        got = hk.esm_fused(*args)
+        torch.cuda.synchronize()
+        ref = hk.esm_fused_plain(*args)
+        zta2 = (args[0][5] * args[0][5]).item()
+        scale = ref.abs().max().item()
+        off = (got - ref).abs() > ESM_NORM_TOL * scale
+        idx = torch.nonzero(off)[:, 0]
+        m = flip_margins(args, idx, nm)
+        out[guard] = dict(NP=args[2].shape[0], NP2=args[7].shape[0], points_off=len(idx),
+                          flips=int(((got == zta2) != (ref == zta2))[idx].sum()),
+                          max_gamma_over_noise=max((g / n for g, n in zip(m["gamma_over_thr"], m["noise_over_thr"])),
+                                                   default=None),
+                          off_rel_err=((got - ref).abs()[idx] / scale).tolist()[:8], finite=bool(torch.isfinite(got).all()),
+                          **({"margins": m} if guard == "adaptive" else {"within_noise": m["within_noise"]}))
+    emit("esm_beyond_1024", G=ESM_2060_G, tol_norm=ESM_NORM_TOL, **out)
+    a = out["adaptive"]
+    check(a["finite"] and out["tpu"]["finite"], "esm_fused at NP 2060: finite scores")
+    check(a["points_off"] <= max(MAX_FLIPS, ESM_2060_G // 100) and a["margins"]["within_noise"],
+          f"esm_fused at NP 2060 differs from its twin only where γ is within float32's noise of the guard ({a})")
     return out
 
 
@@ -1618,14 +1665,36 @@ def esm_bytes(G: int, NP: int, NP2: int, d: int = 1) -> float:
     return 4 * (12 + G * d + (3 + d) * NP + NP * NP + (2 + d) * NP2 + NP2 * NP2 + G)
 
 
+def esm_fused_turns(args, it: int) -> list:
+    """CUDA-event ms per ``esm_fused`` call on packed inputs ``args``, in two
+    turns of ``it`` calls (also what ``profile_main_path.py --kernels``
+    times)."""
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    return [cuda_ms(lambda: hk.esm_fused(*args), it) for _ in range(2)]
+
+
+def chol_blocked_turns(A, it: int = 20) -> tuple:
+    """CUDA-event ms per call of ``cholesky_blocked`` and of
+    ``torch.linalg.cholesky_ex`` on A, each in turn (kernel, library, kernel,
+    library), ``it`` calls a turn → (kernel turns, library turns) (also what
+    ``profile_main_path.py --kernels`` times)."""
+    import torch
+
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    k_ms, lib_ms = [], []
+    for _ in range(2):
+        k_ms.append(cuda_ms(lambda: hk.cholesky_blocked(A), it))
+        lib_ms.append(cuda_ms(lambda: torch.linalg.cholesky_ex(A), it))
+    return k_ms, lib_ms
+
+
 def esm_timing(dev) -> dict:
     """esm_fused on the large-N recipe's max_obs 1024 state (NP 1036, NP2
     1024) at ESM_LARGE_SHAPES, in two turns, beside its plain twin and the
     plain scorer (``expected_squared_mean_xla``, what the port ran for states
-    above the old design's shared memory), with its bound; and the crossover
-    of its two designs: both timed on the testbed state at NP =
-    ESM_CROSSOVER_NP on ESM_CROSSOVER_G grids (where ``ESM_TILED_FROM`` is
-    read from)."""
+    above the old design's shared memory), with its bound."""
     import torch
 
     from tpubq_torch.models import acquire
@@ -1637,22 +1706,12 @@ def esm_timing(dev) -> dict:
         args = acquire.esm_fused_inputs(st, opts, torch.linspace(-4.0, 4.0, Gs, device=dev)[:, None])
         NP, NP2 = args[2].shape[0], args[7].shape[0]
         it = 20 if Gs <= LARGE_G else 5
-        turns = [cuda_ms(lambda: hk.esm_fused(*args), it) for _ in range(2)]
+        turns = esm_fused_turns(args, it)
         out[f"esm_fused_G{Gs}_NP{NP}"] = dict(
             kernel_ms=min(turns), kernel_ms_turns=turns, launches_per_call=hk.esm_fused_launches(NP, NP2, 1),
             plain_ms=cuda_ms(lambda: hk.esm_fused_plain(*args), 2, warmup=1),
             plain_scorer_ms=cuda_ms(lambda: acquire.expected_squared_mean_xla(st, opts, args[1]), 2, warmup=1),
             **bound(esm_bytes(Gs, NP, NP2), esm_ops(Gs, NP, NP2)))
-    cross = {}
-    for NP in ESM_CROSSOVER_NP:
-        bq = make_bq(testbed_x(False), dev, "float32", max_obs=NP - 12, s=S_MAIN)
-        for Gs in ESM_CROSSOVER_G:
-            args = acquire.esm_fused_inputs(bq.state, bq.options, torch.linspace(-4.0, 4.0, Gs, device=dev)[:, None])
-            t = {}
-            for tiled in (False, True, True, False):
-                t.setdefault(tiled, []).append(cuda_ms(lambda: hk._esm_fused_launch(*args, tiled=tiled), 10))
-            cross[f"NP{NP}_G{Gs}"] = dict(per_point_ms=min(t[False]), tiled_ms=min(t[True]), turns=t)
-    out["esm_crossover"] = dict(tiled_from=hk.ESM_TILED_FROM, **cross)
     return out
 
 
@@ -1661,9 +1720,8 @@ def large_timing(dev, label: str) -> dict:
     versions and the library call beside each, at the path's max_obs 1024
     shapes (cholesky_blocked, tri_solve_blocked and cholesky_batched in two
     turns with their library calls, kernel then library, the faster turn of
-    each reported; cholesky_blocked also at LARGE_CHOL_TIMING_N and beside
-    cholesky_batched on a (1, n, n) stack), with their bounds; esm_fused at
-    the path's scoring shapes and its crossover (``esm_timing``); and the
+    each reported; cholesky_blocked also at LARGE_CHOL_TIMING_N), with their
+    bounds; esm_fused at the path's scoring shapes (``esm_timing``); and the
     refit / incremental sweep: host ms per closed-loop step of
     run_active_loop (8 steps, record_moments=False, turns refit, incremental,
     incremental, refit) and per add at an interior point, at max_obs 64 … 1024."""
@@ -1681,17 +1739,11 @@ def large_timing(dev, label: str) -> dict:
                                  plain_ms=cuda_ms(lambda: hk.gaussian_gram_plain(th, x, x), 50), library_ms=None)
     for N in LARGE_CHOL_TIMING_N:
         A = path_gram(rng, N, dev)
-        # each call in turn (kernel, library, cholesky_batched on a (1, N, N) stack), 20 calls a turn
-        k_ms, lib_ms, b1_ms = [], [], []
-        for _ in range(2):
-            k_ms.append(cuda_ms(lambda: hk.cholesky_blocked(A), 20))
-            lib_ms.append(cuda_ms(lambda: torch.linalg.cholesky_ex(A), 20))
-            b1_ms.append(cuda_ms(lambda: hk.cholesky_batched(A[None]), 20))
+        k_ms, lib_ms = chol_blocked_turns(A)
         # bytes: A and L once; operations: N³/3 multiply-adds
         kern[f"cholesky_blocked_{N}"] = dict(
             kernel_ms=min(k_ms), kernel_ms_turns=k_ms, plain_ms=cuda_ms(lambda: hk.cholesky_blocked_plain(A), 1, warmup=0),
-            library_ms=min(lib_ms), library_ms_turns=lib_ms, batched_b1_ms=min(b1_ms), batched_b1_ms_turns=b1_ms,
-            launches_per_call=hk.cholesky_blocked_launches(N), **bound(2 * 4 * N * N, N**3 / 3))
+            library_ms=min(lib_ms), library_ms_turns=lib_ms, launches_per_call=hk.cholesky_blocked_launches(N), **bound(2 * 4 * N * N, N**3 / 3))
     kern.update(esm_timing(dev))
     L = torch.linalg.cholesky(path_gram(rng, n, dev)).contiguous()
     for M in (n, 1, 3, 100):
@@ -1982,7 +2034,6 @@ def large_kernel_entries(lp: dict, lk: dict, lt: dict) -> list:
              max_abs_err=lk["cholesky_blocked"], ms=cb_t["kernel_ms"], plain_ms=cb_t["plain_ms"],
              bound_ms=cb_t["bound_ms"], bound_by=cb_t["bound_by"], library_ms=cb_t["library_ms"],
              shape=f"({gn}, {gn})", dependent_steps=gn, launches_per_call=cb_t["launches_per_call"],
-             batched_b1_ms=cb_t["batched_b1_ms"],
              **{f"at_{N}": at(kt[f"cholesky_blocked_{N}"]) for N in LARGE_CHOL_TIMING_N if N != gn}),
         dict(name="tri_solve_blocked", route="cuda", source="tpubq_torch/csrc/tri_solve_blocked.cu",
              replaces="tpubq/ops/pallas_kernels.py:563", launches=lp["launches"]["tri_solve_blocked"],
@@ -2029,6 +2080,7 @@ def main() -> int:
     fp = fleet_path(dev)
     lp = large_n_path(dev)
     esm_size_routes(dev)
+    esm_beyond_1024(dev)
     s0_observation(dev)
     t = timing(dev, mp, label)
     ft = fleet_timing(dev, fk, fp, mp, label)

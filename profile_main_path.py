@@ -31,10 +31,11 @@ busy time under ``torch.profiler`` (the union of the kernels' intervals on the
 device timeline), the idle share 1 − busy / wall, and the kernel count. The
 per-operator tables go to ``--out``. Imports nothing from JAX.
 
-``--kernels`` times kernels alone instead (CUDA events, two turns each):
-``cholesky_blocked`` at n ∈ KERNEL_CHOL_NS beside ``cholesky_batched`` on a
-(1, n, n) stack and ``torch.linalg.cholesky_ex``, and ``esm_fused`` at the
-main path's (G 10⁴, NP 44) and the large-N path's (G 512, NP 1036) states.
+``--kernels`` times kernels alone instead, through chip_smoke.py's timing
+helpers (CUDA events, two turns each): ``cholesky_blocked`` at n ∈
+``chip_smoke.LARGE_CHOL_TIMING_N`` beside ``torch.linalg.cholesky_ex``
+(``chol_blocked_turns``), and ``esm_fused`` (``esm_fused_turns``) at the main
+path's (G 10⁴, NP 44) and the large-N path's (G 512, NP 1036) states.
 ``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
 say), so that two versions of the kernels are timed by the same code in one
 call: parent, change, change, parent.
@@ -50,8 +51,6 @@ import sys
 import numpy as np
 
 import chip_smoke as cs
-
-KERNEL_CHOL_NS = (32, 44, 128, 300, 1024, 1036)
 
 
 def busy_us(events) -> tuple[float, int]:
@@ -148,20 +147,16 @@ def main() -> int:
 
 def kernel_times(dev, label: str) -> None:
     """One JSON line per kernel shape: CUDA-event ms per call in two turns
-    (kernel, then the calls beside it), on the inputs chip_smoke.py builds."""
+    (kernel, then the library call beside it), on the inputs chip_smoke.py
+    builds, timed by chip_smoke.py's own helpers."""
     import torch
 
     from tpubq_torch.models import acquire
-    from tpubq_torch.ops import hopper_kernels as hk
 
     rng = np.random.RandomState(9)
-    for n in KERNEL_CHOL_NS:
-        A = cs.path_gram(rng, n, dev)
-        turns = {"cholesky_blocked": [], "cholesky_batched_b1": [], "cholesky_ex": []}
-        for _ in range(2):
-            turns["cholesky_blocked"].append(cs.cuda_ms(lambda: hk.cholesky_blocked(A), 50))
-            turns["cholesky_batched_b1"].append(cs.cuda_ms(lambda: hk.cholesky_batched(A[None]), 50))
-            turns["cholesky_ex"].append(cs.cuda_ms(lambda: torch.linalg.cholesky_ex(A), 50))
+    for n in cs.LARGE_CHOL_TIMING_N:
+        k_ms, lib_ms = cs.chol_blocked_turns(cs.path_gram(rng, n, dev), 50)
+        turns = {"cholesky_blocked": k_ms, "cholesky_ex": lib_ms}
         print(json.dumps({"kernel": "cholesky_blocked", "card": label, "n": n, "ms_turns": turns,
                           "ms": {k: min(v) for k, v in turns.items()}}), flush=True)
     st, opts = cs.large_state(dev, 1024, "float32")
@@ -169,7 +164,7 @@ def kernel_times(dev, label: str) -> None:
     small_bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
     small = acquire.esm_fused_inputs(small_bq.state, small_bq.options, torch.linspace(-4.0, 4.0, cs.G, device=dev)[:, None])
     for name, args, iters in (("G512_NP1036", big, 5), ("G10000_NP44", small, 200)):
-        turns = [cs.cuda_ms(lambda: hk.esm_fused(*args), iters) for _ in range(2)]
+        turns = cs.esm_fused_turns(args, iters)
         print(json.dumps({"kernel": "esm_fused", "card": label, "shape": name, "NP": args[2].shape[0],
                           "G": args[1].shape[0], "ms_turns": turns, "ms": min(turns)}), flush=True)
 

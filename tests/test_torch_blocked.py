@@ -247,19 +247,19 @@ def test_marginalize_routes(card_routes):
         assert bool(torch.isfinite(zm).all() and (zv >= 0).all())
 
 
-@pytest.mark.parametrize("NP,NP2,d,launches", [(28, 16, 1, 1), (44, 32, 1, 2), (48, 32, 2, 2), (268, 256, 1, 2),
-                                                (1036, 1024, 1, 2), (1036, 1024, 3, 2), (2060, 2048, 1, 2)])
-def test_esm_fused_launches_at_the_path_shapes(NP, NP2, d, launches):
-    """esm_fused: one launch (one thread per grid point) below ESM_TILED_FROM
-    rows, two (the tiled products, then the per-point finish) from there up:
-    the main path's 44 rows and max_obs 256 … 2048 of the large-N path."""
-    assert hk.esm_fused_launches(NP, NP2, d) == launches
+@pytest.mark.parametrize("NP,NP2,d", [(28, 16, 1), (44, 32, 1), (48, 32, 2), (268, 256, 1), (1036, 1024, 1),
+                                      (1036, 1024, 3), (2060, 2048, 1)])
+def test_esm_fused_launches_at_the_path_shapes(NP, NP2, d):
+    """esm_fused: two launches at every size (the tiled products, then the
+    per-point finish): a small state's 28 rows, the main path's 44 and
+    max_obs 256 … 2048 of the large-N path."""
+    assert hk.esm_fused_launches(NP, NP2, d) == 2
     assert hk.esm_fused_supported(NP, NP2, d)
 
 
 def test_esm_route_by_size(card_routes):
     """esm_fused for every float32 gaussian state, max_obs 2048 included (the
-    tiled design has no shared-memory cap); there, followed on the CPU along
+    kernel has no shared-memory cap); there, followed on the CPU along
     the card's route (esm_fused's plain version), it equals the plain scorer
     expected_squared_mean_xla at 1e-4 of the largest score, off at most 2
     points (degenerate-mask flips between two float32 evaluations)."""

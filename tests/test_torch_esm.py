@@ -128,4 +128,4 @@ def test_esm_fused_cpu_wrapper_uses_plain_and_checks_shapes():
         hk.esm_fused(*[a.double() for a in args])
     assert hk.esm_fused_supported(48, 32, 1) and hk.esm_fused_supported(80, 64, 1)
     assert not hk.esm_fused_supported(48, 32, 4)
-    assert hk.esm_fused_supported(4000, 32, 1)  # the tiled design: no shared-memory cap
+    assert hk.esm_fused_supported(4000, 32, 1)  # the inverses are streamed: no shared-memory cap

@@ -118,12 +118,11 @@ def test_esm_fused_kernel_2d_matches_plain(cuda):
 
 
 def test_esm_fused_kernel_large_capacity_reads_inverses_from_device_memory(cuda):
-    """At max_obs = 256 (NP 268) the state takes the tiled design, which
-    streams the two inverses from device memory in two launches; it must
-    still match its twin."""
+    """At max_obs = 256 (NP 268) the kernel streams the two inverses from
+    device memory in two launches; it must still match its twin."""
     bq = _testbed_bq(cuda, max_obs=256)
     NP, NP2 = bq.options.max_nsc, bq.options.max_obs
-    assert hk._esm_tiled(NP, NP2, 1) and hk.esm_fused_launches(NP, NP2, 1) == 2
+    assert hk.esm_fused_launches(NP, NP2, 1) == 2
     grid = torch.linspace(-4.0, 4.0, 3001, device=cuda)[:, None]
     args = acquire.esm_fused_inputs(bq.state, bq.options, grid)
     before = hk.esm_fused.launches
@@ -168,29 +167,28 @@ def _guard_band(args, idx):
     return (gam - thr).abs() <= lam_rho_kappa * k.sum(0)
 
 
-def _esm_close(args, out, ref, max_off=2):
-    """Within 1e-4 of the largest score, except at most ``max_off`` points,
-    each within the guard's float32 noise band (_guard_band), where two
-    float32 sums of γ in another order may fall on either side of the
-    threshold or keep only a few bits."""
+def _esm_close(args, out, ref):
+    """Within 1e-4 of the largest score, except at most max(2, 1% of the
+    grid) points, each within the guard's float32 noise band (_guard_band),
+    where two float32 sums of γ in another order may fall on either side of
+    the threshold, or leave a γ just past it with few bits."""
     off = torch.nonzero((out - ref).abs() > 1e-4 * float(ref.abs().max()))[:, 0]
     assert bool(torch.isfinite(out).all())
-    assert len(off) <= max_off and bool(_guard_band(args, off).all()), len(off)
+    assert len(off) <= max(2, out.shape[0] // 100), len(off)
+    assert bool(_guard_band(args, off).all()), off.tolist()
 
 
-@pytest.mark.parametrize("NP,d,G", [(44, 1, 10_000), (300, 1, 3001), (1036, 1, 512), (2060, 1, 777),
-                                    (44, 2, 4097), (300, 2, 1000), (1036, 2, 513)])
+@pytest.mark.parametrize("NP,d,G", [(28, 1, 1000), (44, 1, 10_000), (300, 1, 3001), (1036, 1, 512), (2060, 1, 777),
+                                    (28, 2, 777), (44, 2, 4097), (300, 2, 1000), (1036, 2, 513)])
 def test_esm_fused_kernel_matches_plain_at_every_size(cuda, NP, d, G):
-    """The kernel against its twin at NP 44, 300, 1036 and 2060 (ragged grids
-    and ragged column tiles), d = 1 and 2: the exact launch count, the twin's
-    scores (_esm_close) under the production guard (at most 1% of the grid
-    off, each in the guard's noise band: at NP 2060, 3 of 777 points) and, up
-    to NP 1036 (chip_smoke holds max_obs 1024 the same way), under the TPU
-    kernel's own eps·κ guard (noise_mult = 0), which scores points whose γ
-    is float32 rounding noise (every point off in the noise band); and the
-    same bits from two calls. At NP 2060 the eps·κ guard admits points
-    whose γ carries float32 noise of up to a few percent just outside the
-    band, where any two float32 evaluations differ beyond 1e-4."""
+    """The kernel against its twin at NP 28, 44, 300, 1036 and 2060 (ragged
+    grids and ragged column tiles), d = 1 and 2: the exact launch count, the
+    twin's scores (_esm_close) under the production guard and, up to NP 1036,
+    under the TPU kernel's own eps·κ guard (noise_mult = 0), and the same
+    bits from two calls. At NP 2060 the eps·κ guard scores points whose γ is
+    up to ~1.5 × float32's noise λ·ρ·κ·Σk, a quotient by rounding in either
+    evaluation: chip_smoke.py's esm_beyond_1024 prints how many and how far
+    (a quarter of this grid)."""
     st, opts = _esm_state(cuda, NP, d)
     assert st.x_sc.shape[0] == NP
     rng = np.random.RandomState(G)
@@ -204,7 +202,7 @@ def test_esm_fused_kernel_matches_plain_at_every_size(cuda, NP, d, G):
         out = hk.esm_fused(*args)
         torch.cuda.synchronize()
         assert hk.esm_fused.launches == before + hk.esm_fused_launches(NP, opts.max_obs, d)
-        _esm_close(args, out, hk.esm_fused_plain(*args), max_off=max(2, G // 100) if guard == "adaptive" else G)
+        _esm_close(args, out, hk.esm_fused_plain(*args))
         assert torch.equal(out, hk.esm_fused(*args))
 
 
@@ -617,9 +615,9 @@ def test_large_n_refit_and_fast_step_go_through_the_kernels(cuda):
 
 
 def test_esm_scores_a_state_above_the_fused_kernels_budget(cuda):
-    """max_obs 2048 (2,060 rows), beyond what the one-thread-per-point design
-    holds in shared memory: the tiled design scores it (two launches) and is
-    held to the CPU's float32 scores at 1e-4 of the largest score."""
+    """max_obs 2048 (2,060 rows), whose inverses no block's shared memory
+    holds: the kernel streams them (two launches) and is held to the CPU's
+    float32 scores at 1e-4 of the largest score."""
     from tpubq_torch.models import acquire as acq
 
     bq = _testbed_bq(cuda, max_obs=2048)

@@ -12,33 +12,23 @@
 // production adaptive guard noise_mult = lambda * rho * kappa (noise_mult = 0
 // is the TPU kernel's own guard).
 //
-// Two designs, chosen by the wrapper from the shapes
-// (hopper_kernels._esm_tiled):
-//
-// 1. Small states, one launch (esm_fused_kernel): one thread per grid point,
-//    the problem's vectors, K^-1 and K_tl^-1 in shared memory, read by every
-//    thread of a warp at the same address (broadcast, no bank conflicts), and
-//    each thread's k vector in shared memory laid out [j][thread] so that a
-//    warp's accesses are consecutive. Each point costs NP^2 + NP2^2
-//    dependent FMAs on its own thread: right where they are a few thousand,
-//    and latency-bound above.
-// 2. Large states, two launches, no shared-memory cap on NP: the two
-//    quadratic forms as tiled products, as the TPU kernel forms them
-//    (jnp.dot(Kinv, k)).
-//    (a) esm_tile_kernel: one block per (64 grid points, 64 columns c of
-//        K^-1, GP) forms V[p][c] = sum_j k_p[j] K^-1[j][c] over 32-row chunks
-//        of j: the chunk's k tile is computed in place (expf, the points in
-//        shared memory) and K^-1's rows are read from device memory, both
-//        staged in shared memory through registers loaded while the previous
-//        chunk's 4 x 4 register-blocked float32 FMA tile runs. The epilogue
-//        multiplies by the points' own k[c] and reduces across the 64
-//        columns, giving a partial k^T K^-1 k per point and column tile, and
-//        the per-tile partials of sum(k), z^T K^-1 k (through uz), k^T alpha,
-//        the sup-norm `near` flag and m_a = k_tl^T alpha_tl.
-//    (b) esm_finish_kernel: one thread per point sums its partials over the
-//        column tiles in a fixed order and finishes as design 1 does.
-//    No float atomics: repeated calls give the same bits. The cancellation in
-//    gamma = kappa - k^T K^-1 k stays float32 FMA throughout (no TF32).
+// The two quadratic forms as tiled products, as the TPU kernel forms them
+// (jnp.dot(Kinv, k)), in two launches, with no shared-memory cap on NP:
+// (a) esm_tile_kernel: one block per (64 grid points, 64 columns c of K^-1,
+//     GP) forms V[p][c] = sum_j k_p[j] K^-1[j][c] over 32-row chunks of j:
+//     the chunk's k tile is computed in place (expf, the points in shared
+//     memory) and K^-1's rows are read from device memory, both staged in
+//     shared memory through registers loaded while the previous chunk's
+//     4 x 4 register-blocked float32 FMA tile runs. The epilogue multiplies
+//     by the points' own k[c] and reduces across the 64 columns, giving a
+//     partial k^T K^-1 k per point and column tile, and the per-tile partials
+//     of sum(k), z^T K^-1 k (through uz), k^T alpha, the sup-norm `near` flag
+//     and m_a = k_tl^T alpha_tl.
+// (b) esm_finish_kernel: one thread per point sums its partials over the
+//     column tiles in a fixed order, then forms zeta, the guard, the log-GP
+//     moments and the ESM.
+// No float atomics: repeated calls give the same bits. The cancellation in
+// gamma = kappa - k^T K^-1 k stays float32 FMA throughout (no TF32).
 //
 // What bounds it on Hopper: the G (NP^2 + NP2^2) multiply-adds of the two
 // quadratic forms against the float32 FMA rate (the device-memory traffic is
@@ -50,9 +40,8 @@
 
 namespace {
 
-// The per-point finish shared by both designs: the guard, B, A, the log-GP
-// posterior variance c = max(h_tl^2 - quad2, 0), the clamped lognormal
-// moments and the ESM.
+// The per-point finish: the guard, B, A, the log-GP posterior variance
+// c = max(h_tl^2 - quad2, 0), the clamped lognormal moments and the ESM.
 __device__ __forceinline__ float esm_point(float kappa, float gamma, float zTa, float h_tl2, float cap,
                                            float noise_mult, float zeta, float gam, float ksum, float zv,
                                            float ka, bool near, float mt, float quad2) {
@@ -79,125 +68,6 @@ __device__ __forceinline__ float esm_zeta(const float* xa, float zc, const float
   }
   return zc * expf(-q);
 }
-
-template <int D>
-__global__ void esm_fused_kernel(const float* __restrict__ params,
-                                 const float* __restrict__ grid, int G,
-                                 const float* __restrict__ xsc,
-                                 const float* __restrict__ msc,
-                                 const float* __restrict__ Kinv,
-                                 const float* __restrict__ uz,
-                                 const float* __restrict__ alpha, int NP,
-                                 const float* __restrict__ xs,
-                                 const float* __restrict__ ms,
-                                 const float* __restrict__ Kinv_tl,
-                                 const float* __restrict__ alpha_tl, int NP2,
-                                 float* __restrict__ out) {
-  constexpr int NPAR = 9 + 3 * D + D * D;
-  extern __shared__ float smem[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int npmax = NP > NP2 ? NP : NP2;
-
-  float* kbuf = smem;                    // [npmax][T]
-  float* sp = kbuf + npmax * T;          // [NPAR]
-  float* sxsc = sp + NPAR;               // [NP][D]
-  float* smsc = sxsc + NP * D;           // [NP]
-  float* suz = smsc + NP;                // [NP]
-  float* sal = suz + NP;                 // [NP]
-  float* sxs = sal + NP;                 // [NP2][D]
-  float* sms = sxs + NP2 * D;            // [NP2]
-  float* satl = sms + NP2;               // [NP2]
-  float* Ki = satl + NP2;                // [NP][NP]
-  float* Ki2 = Ki + NP * NP;             // [NP2][NP2]
-
-  for (int i = tid; i < NPAR; i += T) sp[i] = params[i];
-  for (int i = tid; i < NP * D; i += T) sxsc[i] = xsc[i];
-  for (int i = tid; i < NP; i += T) {
-    smsc[i] = msc[i];
-    suz[i] = uz[i];
-    sal[i] = alpha[i];
-  }
-  for (int i = tid; i < NP2 * D; i += T) sxs[i] = xs[i];
-  for (int i = tid; i < NP2; i += T) {
-    sms[i] = ms[i];
-    satl[i] = alpha_tl[i];
-  }
-  for (int i = tid; i < NP * NP; i += T) Ki[i] = Kinv[i];
-  for (int i = tid; i < NP2 * NP2; i += T) Ki2[i] = Kinv_tl[i];
-  __syncthreads();
-
-  const int g = blockIdx.x * T + tid;
-  if (g >= G) return;  // ragged edge: no barrier follows
-
-  const float h_l2 = sp[0], kappa = sp[1], zc = sp[2], gamma = sp[3];
-  const float thresh = sp[4], zTa = sp[5], h_tl2 = sp[6], cap = sp[7];
-  const float* wl = sp + 8;             // 0.5 / w_l^2
-  const float* wtl = sp + 8 + D;        // 0.5 / w_tl^2
-  const float* mu = sp + 8 + 2 * D;     // measure mean
-  const float* Ah = sp + 8 + 3 * D;     // 0.5 (W_l + Sigma)^-1, row-major
-  const float noise_mult = sp[8 + 3 * D + D * D];
-
-  float xa[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) xa[c] = grid[(size_t)g * D + c];
-  float* kb = kbuf + tid;
-
-  // linear-GP cross-kernel, sup-norm proximity, and the two dot products
-  bool near = false;
-  float ksum = 0.f, zv = 0.f, ka = 0.f;
-  for (int j = 0; j < NP; ++j) {
-    float r2 = 0.f, dmax = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      const float dj = sxsc[j * D + c] - xa[c];
-      r2 += dj * dj * wl[c];
-      dmax = fmaxf(dmax, fabsf(dj));
-    }
-    const float m = smsc[j];
-    const float k = h_l2 * expf(-r2) * m;
-    kb[j * T] = k;
-    ksum += k;
-    zv += suz[j] * k;
-    ka += sal[j] * k;
-    near = near || (m > 0.f && dmax < thresh);
-  }
-  // gamma = kappa - k^T K^-1 k
-  float quad = 0.f;
-  for (int i = 0; i < NP; ++i) {
-    const float* row = Ki + i * NP;
-    float vi = 0.f;
-    for (int j = 0; j < NP; ++j) vi += row[j] * kb[j * T];
-    quad += kb[i * T] * vi;
-  }
-
-  const float zeta = esm_zeta<D>(xa, zc, mu, Ah);
-
-  // log-GP posterior moments at x_a (the k buffer is reused)
-  float mt = 0.f;
-  for (int j = 0; j < NP2; ++j) {
-    float r2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      const float dj = sxs[j * D + c] - xa[c];
-      r2 += dj * dj * wtl[c];
-    }
-    const float k = h_tl2 * expf(-r2) * sms[j];
-    kb[j * T] = k;
-    mt += satl[j] * k;
-  }
-  float quad2 = 0.f;
-  for (int i = 0; i < NP2; ++i) {
-    const float* row = Ki2 + i * NP2;
-    float vi = 0.f;
-    for (int j = 0; j < NP2; ++j) vi += row[j] * kb[j * T];
-    quad2 += kb[i * T] * vi;
-  }
-  out[g] = esm_point(kappa, gamma, zTa, h_tl2, cap, noise_mult, zeta, kappa - quad, ksum, zv, ka, near, mt, quad2);
-}
-
-
-// ---- design 2: the tiled quadratic forms -----------------------------------
 
 constexpr int kPT = 64;        // grid points per block
 constexpr int kCT = 64;        // columns of K^-1 per block
@@ -409,7 +279,7 @@ __global__ void esm_finish_kernel(const float* __restrict__ params, const float*
 }
 
 template <int D>
-int launch_tiled(const float* params, const float* grid, int G, const float* xsc, const float* msc,
+int launch(const float* params, const float* grid, int G, const float* xsc, const float* msc,
                  const float* Kinv, const float* uz, const float* alpha, int NP, const float* xs,
                  const float* ms, const float* Kinv_tl, const float* alpha_tl, int NP2, float* part,
                  float* out, cudaStream_t stream) {
@@ -424,65 +294,24 @@ int launch_tiled(const float* params, const float* grid, int G, const float* xsc
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch(const float* params, const float* grid, int G, const float* xsc,
-           const float* msc, const float* Kinv, const float* uz,
-           const float* alpha, int NP, const float* xs, const float* ms,
-           const float* Kinv_tl, const float* alpha_tl, int NP2, int threads,
-           int smem_bytes, float* out, cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        esm_fused_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (G + threads - 1) / threads;
-  esm_fused_kernel<D><<<blocks, threads, smem_bytes, stream>>>(
-      params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl,
-      NP2, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-extern "C" int tpubq_esm_fused(const float* params, const float* grid, int G, int d,
-                               const float* xsc, const float* msc, const float* Kinv,
-                               const float* uz, const float* alpha, int NP,
-                               const float* xs, const float* ms, const float* Kinv_tl,
-                               const float* alpha_tl, int NP2, int threads,
-                               int smem_bytes, float* out,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1:
-      return launch<1>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl,
-                       alpha_tl, NP2, threads, smem_bytes, out, s);
-    case 2:
-      return launch<2>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl,
-                       alpha_tl, NP2, threads, smem_bytes, out, s);
-    case 3:
-      return launch<3>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl,
-                       alpha_tl, NP2, threads, smem_bytes, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// Design 2. `part` is scratch of (5 ceil(NP/64) + 2 ceil(NP2/64)) x Gp floats,
+// `part` is scratch of (5 ceil(NP/64) + 2 ceil(NP2/64)) x Gp floats,
 // Gp = G rounded up to 64, allocated by the caller. Two launches.
-extern "C" int tpubq_esm_tiled(const float* params, const float* grid, int G, int d, const float* xsc,
+extern "C" int tpubq_esm_fused(const float* params, const float* grid, int G, int d, const float* xsc,
                                const float* msc, const float* Kinv, const float* uz, const float* alpha,
                                int NP, const float* xs, const float* ms, const float* Kinv_tl,
                                const float* alpha_tl, int NP2, float* part, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 1:
-      return launch_tiled<1>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl, NP2,
+      return launch<1>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl, NP2,
                              part, out, s);
     case 2:
-      return launch_tiled<2>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl, NP2,
+      return launch<2>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl, NP2,
                              part, out, s);
     case 3:
-      return launch_tiled<3>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl, NP2,
+      return launch<3>(params, grid, G, xsc, msc, Kinv, uz, alpha, NP, xs, ms, Kinv_tl, alpha_tl, NP2,
                              part, out, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

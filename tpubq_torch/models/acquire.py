@@ -15,9 +15,8 @@ noise floor) score Z_mean².
 
 Dispatch (``esm_route``, from shapes before any launch): every float32
 gaussian state scores with the fused ``esm_fused`` kernel (on a CUDA device;
-its plain twin on the CPU) — one thread per grid point for small states, the
-quadratic forms as tiled products from ``hopper_kernels.ESM_TILED_FROM`` rows
-up, with no cap on the state's size. The plain path below
+its plain twin on the CPU), the quadratic forms as tiled products, with no
+cap on the state's size. The plain path below
 (``expected_squared_mean_xla``, several (nsc × G) intermediates in device
 memory per sweep) scores float64 (the cho_solve parity contract) and the
 kernels ``esm_fused`` does not take (d > 3).

@@ -34,11 +34,7 @@ NVCC_FLAGS = (
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ip = ctypes.POINTER(ctypes.c_int)
 _SIG = {
-    "tpubq_esm_fused": (
-        [_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _i, _i, _p, _p],
-        _i,
-    ),
-    "tpubq_esm_tiled": ([_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p], _i),
+    "tpubq_esm_fused": ([_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p], _i),
     "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _i, _p], _i),
     "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p], _i),
     "tpubq_esm_fleet_l": (

@@ -3,9 +3,8 @@
 Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
 
 * ``esm_fused`` (``csrc/esm_fused.cu``) ← ``tpubq/ops/pallas_kernels.py``
-  ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``;
-  one thread per grid point for small states, the two quadratic forms as
-  tiled products for large ones (``ESM_TILED_FROM``).
+  ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``,
+  the two quadratic forms as tiled products (two launches).
 * ``chol_batch`` (``csrc/chol_batch.cu``) ← ``cholesky_batch_major``: the
   batched float32 Cholesky behind ``marginalize``.
 * ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
@@ -31,7 +30,7 @@ A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its CUDA kernel
 launches in a plain integer attribute (``esm_fused.launches``, …,
 ``tri_solve_blocked.launches``), incremented where the kernel is launched and
-nowhere else; ``esm_fused`` (its tiled design) and ``cholesky_batched`` make
+nowhere else; ``esm_fused`` and ``cholesky_batched`` make
 several launches per call (``esm_fused_launches``,
 ``cholesky_batched_launches``; ``cholesky_blocked_launches`` and
 ``tri_solve_blocked_launches`` are one).
@@ -53,7 +52,6 @@ __all__ = [
     "esm_fused_plain",
     "esm_fused_supported",
     "esm_fused_launches",
-    "ESM_TILED_FROM",
     "chol_batch",
     "chol_batch_plain",
     "chol_batch_supported",
@@ -86,7 +84,6 @@ __all__ = [
 
 #: Shared memory one block may use on H100 (227 KB).
 SMEM_LIMIT = 232448
-_ESM_THREADS = (128, 64, 32)
 _CHOL_THREADS = 256
 _MLL_THREADS = 256  # a power of two: the kernel's block-wide sums are a binary tree
 _LOG2PI = math.log(2.0 * math.pi)
@@ -101,47 +98,21 @@ def esm_params_len(d: int) -> int:
     return 9 + 3 * d + d * d
 
 
-def _esm_launch_config(NP: int, NP2: int, d: int):
-    """(threads, smem_bytes) of a one-thread-per-point ``esm_fused`` launch,
-    or None: shared memory holds each thread's k buffer (max(NP, NP2)
-    floats), the problem's vectors, K⁻¹ and K_tl⁻¹; the largest block that
-    fits wins."""
-    floats = esm_params_len(d) + NP * (d + 3) + NP2 * (d + 2) + NP * NP + NP2 * NP2
-    for t in _ESM_THREADS:
-        if 4 * (max(NP, NP2) * t + floats) <= SMEM_LIMIT:
-            return t, 4 * (max(NP, NP2) * t + floats)
-    return None
-
-
-#: From this many rows of the larger GP (max(NP, NP2)) up, ``esm_fused``
-#: takes its tiled design (two launches); below, one thread per grid point
-#: (one launch). On the H100 the per-point design won at NP 24 and 28 and the
-#: tiled one from NP 44 up in every run, on 512- and 10⁴-point grids alike;
-#: at NP 36 the runs split (``chip_smoke.py``'s ``esm_crossover``; PERF.md §6,
-#: PR 6).
-ESM_TILED_FROM = 40
-#: Rows and columns of one tile of the tiled design (grid points × columns of
+#: Rows and columns of one tile of ``esm_fused`` (grid points × columns of
 #: K⁻¹), and its partials per point and column tile of each GP.
 _ESM_TILE = 64
 _ESM_FIELDS = (5, 2)
 
 
-def _esm_tiled(NP: int, NP2: int, d: int) -> bool:
-    """Whether ``esm_fused`` takes its tiled design at these sizes: from
-    ``ESM_TILED_FROM`` rows up, and wherever the per-point design's k buffers
-    do not fit in shared memory."""
-    return max(NP, NP2) >= ESM_TILED_FROM or _esm_launch_config(NP, NP2, d) is None
-
-
 def esm_fused_launches(NP: int, NP2: int, d: int) -> int:
-    """CUDA launches of one ``esm_fused`` call: 2 for the tiled design (the
-    tiles, then the per-point finish), 1 for one thread per grid point."""
-    return 2 if _esm_tiled(NP, NP2, d) else 1
+    """CUDA launches of one ``esm_fused`` call at any size: 2 (the tiles,
+    then the per-point finish)."""
+    return 2
 
 
 def esm_fused_supported(NP: int, NP2: int, d: int) -> bool:
     """Whether ``esm_fused`` covers these sizes: d ≤ 3, any NP and NP2 (the
-    tiled design streams K⁻¹ and K_tl⁻¹ from device memory, so only the
+    kernel streams K⁻¹ and K_tl⁻¹ from device memory, so only the
     scratch the wrapper allocates, (5⌈NP/64⌉ + 2⌈NP2/64⌉) floats per grid
     point, limits the sizes)."""
     return 1 <= d <= 3
@@ -271,16 +242,6 @@ def esm_fused(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl
         return esm_fused_plain(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl)
     if grid.device.type != "cuda":
         raise ValueError(f"esm_fused: unsupported device {grid.device}")
-    return _esm_fused_launch(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl,
-                             tiled=_esm_tiled(NP, NP2, d))
-
-
-def _esm_fused_launch(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl, tiled: bool):
-    """Launch one design of ``esm_fused`` on checked CUDA inputs (the
-    wrapper picks ``tiled``; ``chip_smoke.py`` times both to place
-    ``ESM_TILED_FROM``)."""
-    G, d = grid.shape
-    NP, NP2 = xsc.shape[0], xs.shape[0]
     out = torch.empty((G,), dtype=torch.float32, device=grid.device)
     if G == 0:
         return out
@@ -292,22 +253,15 @@ def _esm_fused_launch(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, 
     ptrs = (params.data_ptr(), grid.data_ptr(), G, d, xsc.data_ptr(), msc.data_ptr(), Kinv.data_ptr(),
             uz.data_ptr(), alpha.data_ptr(), NP, xs.data_ptr(), ms.data_ptr(), Kinv_tl.data_ptr(),
             alpha_tl.data_ptr(), NP2)
+    tiles = [(n + _ESM_TILE - 1) // _ESM_TILE for n in (NP, NP2)]
+    if max(tiles) > 65535:
+        raise ValueError(f"esm_fused: NP={NP}, NP2={NP2}: more than 65,535 column tiles")
+    Gp = (G + _ESM_TILE - 1) // _ESM_TILE * _ESM_TILE
     with torch.cuda.device(grid.device):
-        if tiled:
-            tiles = [(n + _ESM_TILE - 1) // _ESM_TILE for n in (NP, NP2)]
-            if max(tiles) > 65535:
-                raise ValueError(f"esm_fused: NP={NP}, NP2={NP2}: more than 65,535 column tiles")
-            Gp = (G + _ESM_TILE - 1) // _ESM_TILE * _ESM_TILE
-            part = torch.empty((sum(f * t for f, t in zip(_ESM_FIELDS, tiles)), Gp), dtype=torch.float32,
-                               device=grid.device)
-            err = lib.tpubq_esm_tiled(*ptrs, part.data_ptr(), out.data_ptr(), _stream_ptr(grid))
-            esm_fused.launches += 2
-        else:
-            cfg = _esm_launch_config(NP, NP2, d)
-            if cfg is None:
-                raise ValueError(f"esm_fused: NP={NP}, NP2={NP2} exceed the per-point design's shared memory")
-            err = lib.tpubq_esm_fused(*ptrs, *cfg, out.data_ptr(), _stream_ptr(grid))
-            esm_fused.launches += 1
+        part = torch.empty((sum(f * t for f, t in zip(_ESM_FIELDS, tiles)), Gp), dtype=torch.float32,
+                           device=grid.device)
+        err = lib.tpubq_esm_fused(*ptrs, part.data_ptr(), out.data_ptr(), _stream_ptr(grid))
+        esm_fused.launches += esm_fused_launches(NP, NP2, d)
     _check(err, "esm_fused")
     return out
 

@@ -20,7 +20,9 @@ before the final line):
               large-N kernels (gaussian_gram, cholesky_blocked,
               tri_solve_blocked, cholesky_batched) at n = 44, 128, 300 and
               1036, NaN confinement (a bad pivot past the first panel and
-              in the last one) and the solve's determinism included.
+              in the last one) and the solve's determinism included; and
+              mll_grad's tiles at (10, 256) and (10, 1036) on the large-N
+              recipe's states.
 3. main     — the f32 BQ path through the BQ facade on the card: init →
               fit_hypers (10 restarts × 150 Adam steps over the mll_grad
               kernel, both GPs) → Z moments → 10 × (choose_next over 10,000
@@ -47,16 +49,19 @@ before the final line):
               state size takes (max_obs 32, 1024, 2048: esm_fused at every
               size), card against CPU; and esm_fused against its twin on the
               recipe's max_obs 2048 state (NP 2060), with the float64 γ of
-              every point where the two differ.
+              every point where the two differ. Then BQ.fit_hypers at max_obs
+              1024 on the recipe through the fused route (the tiles), with
+              its exact launch count, timed once, its MLL gain and E[Z] / V[Z]
+              held to the float64 CPU path with the card's hypers.
 6. s = 0    — printed, not gated: how many active steps the float32 log-GP
               Gram survives at s = 0 before rung 0 of the jitter ladder fails,
               with fixed hypers, after one fit, and with a refit every step.
 7. timing   — CUDA-event times of each kernel, its plain twin and the library
               call or nearest plain route beside it, and host-clock times of
               fit_hypers, add_observation, marginalize and the fleet's calls
-              at B = 1, 8 and 64; esm_fused at the large-N path's shapes;
-              cholesky_blocked at n = 32 … 1036 beside cholesky_ex; the
-              refit / incremental
+              at B = 1, 8 and 64; esm_fused and mll_grad at the large-N
+              path's shapes; cholesky_blocked at n = 32 … 1036 beside
+              cholesky_ex; the refit / incremental
               sweep (ms per step at max_obs 64 … 1024) that
               INCREMENTAL_AUTO_WINDOW is read from.
 
@@ -400,15 +405,19 @@ def _row_errs(mll, grad, mll_ref, grad_ref, mll_floor: float = 0.0):
 
 
 def mll_vs_plain(thetas, s, x, y, mask, jitter: float, cond_factor: float = MLL_COND_FACTOR,
-                 mll_floor: float = 0.0, **label) -> dict:
+                 mll_floor: float = 0.0, twin_factor: float = 0.0, **label) -> dict:
     """Launch ``mll_grad_batched`` and its plain twin on the same inputs and
     hold the kernel to the twin row by row (see MLL_RTOL). A row that is
     non-finite on one side must be non-finite on the other, and a second
-    launch must repeat the first to the bit. Also reported, not gated: each
-    side's distance to the same arithmetic in float64 on the CPU. Returns the
+    launch must repeat the first to the bit. Also reported: each side's
+    distance to the same arithmetic in float64 (on x's device). Returns the
     case with its ``failures`` (checked by the caller after printing).
     ``mll_floor`` puts a floor under |MLL| in its relative error: an MLL near a
-    zero crossing is a sum of terms of the size of the live count."""
+    zero crossing is a sum of terms of the size of the live count.
+    ``twin_factor`` > 0 also lets a row's gradient differ from the twin's by
+    that many times the twin's own largest distance to float64 over the case
+    (the rule of the fleet kernels): at n ~ 10³ the gradient's n² terms
+    cancel to ~1e-3 of their size, beyond what κ alone predicts."""
     import torch
 
     from tpubq_torch.ops import hopper_kernels as hk
@@ -418,31 +427,30 @@ def mll_vs_plain(thetas, s, x, y, mask, jitter: float, cond_factor: float = MLL_
     mll2, grad2 = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=jitter)
     torch.cuda.synchronize()
     ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, jitter)
-    s64 = torch.as_tensor(s).double().cpu()
-    m64, g64 = hk.mll_grad_batched_plain(thetas.double().cpu(), s64, x.double().cpu(),
-                                         y.double().cpu(), mask.cpu(), jitter)
+    s64 = torch.as_tensor(s).double()
+    m64, g64 = hk.mll_grad_batched_plain(thetas.double(), s64.to(x.device), x.double(), y.double(), mask, jitter)
     fin = lambda m, g: (torch.isfinite(m) & torch.isfinite(g).all(-1)).cpu()  # noqa: E731
     ok_k, ok_t = fin(mll, grad), fin(ref_mll, ref_grad)
     e_mll, e_grad = _row_errs(mll, grad, ref_mll, ref_grad, mll_floor)
     t_mll, t_grad = _row_errs(ref_mll, ref_grad, m64, g64, mll_floor)
     k_mll, k_grad = _row_errs(mll, grad, m64, g64, mll_floor)
     both = ok_k & ok_t
-    # condition number of each row's live Gram, float64
-    live = mask.cpu()
-    th64 = thetas.double().cpu()
+    # condition number of each row's live Gram, float64 on x's device
+    th64, s64 = thetas.double(), s64.to(x.device)
 
     def condition(th, x_live, s_):
         K = kernels.gaussian_K(th, x_live, x_live)
-        K = K + torch.eye(x_live.shape[0], dtype=torch.float64) * (s_ ** 2 + jitter * th[:, 0] ** 2)[:, None, None]
+        K = K + torch.eye(x_live.shape[0], dtype=torch.float64, device=x.device) * (
+            s_ ** 2 + jitter * th[:, 0] ** 2)[:, None, None]
         ev = torch.linalg.eigvalsh(K)
-        return ev[:, -1] / torch.clamp(ev[:, 0], min=1e-300)
+        return (ev[:, -1] / torch.clamp(ev[:, 0], min=1e-300)).cpu()
 
     if x.ndim == 3:  # per-problem data: each problem's rows on its own live points
         P = x.shape[0]
-        th_p, x_p, s_p = th64.reshape(P, -1, 2), x.double().cpu(), s64.expand(P)
-        kappa = torch.cat([condition(th_p[i], x_p[i][live[i]], s_p[i]) for i in range(P)])
+        th_p, x_p, s_p = th64.reshape(P, -1, 2), x.double(), s64.expand(P)
+        kappa = torch.cat([condition(th_p[i], x_p[i][mask[i]], s_p[i]) for i in range(P)])
     else:
-        kappa = condition(th64, x.double().cpu()[live], s64)
+        kappa = condition(th64, x.double()[mask], s64)
     lst = lambda t: [float(v) if math.isfinite(v) else None for v in t.tolist()]  # noqa: E731
     case = dict(**label, B=thetas.shape[0], n=x.shape[-2], live=int(mask.reshape(-1, mask.shape[-1])[0].sum()),
                 jitter=jitter,
@@ -459,6 +467,8 @@ def mll_vs_plain(thetas, s, x, y, mask, jitter: float, cond_factor: float = MLL_
         if bool((both & (e > fixed)).any()) else 0.0  # noqa: E731
     case["worst_over_eps32_kappa"] = dict(mll=over(e_mll, MLL_RTOL), grad=over(e_grad, MLL_GRAD_NORM_TOL))
     tol_m, tol_g = torch.clamp(eps_kappa, min=MLL_RTOL), torch.clamp(eps_kappa, min=MLL_GRAD_NORM_TOL)
+    if twin_factor > 0.0 and bool(both.any()):
+        tol_g = torch.clamp(tol_g, min=twin_factor * float(t_grad[both].max()))
     held = {
         "repeats to the bit": torch.equal(bits(mll), bits(mll2)) and torch.equal(bits(grad), bits(grad2)),
         "non-finite on the same rows as the twin": bool((ok_k == ok_t).all()),
@@ -1190,6 +1200,11 @@ LARGE_CHOL_TIMING_N = (32, 44, 128, 300, 1024, 1036)
 ESM_LARGE_SHAPES = ((LARGE_G, 1024), (10_000, 1024))
 ESM_2060_G = 777  # random points scored on the max_obs 2048 state (a ragged grid)
 GRAM_TOL = 1e-6  # max|Δ| / h²: expf against torch.exp, a few float32 ulps
+# mll_grad at the large-N path's shapes (the recipe's max_obs): (10, 256), the
+# log-GP at 256, and (10, 1036), the linear GP at 1024
+LARGE_MLL_SHAPES = (256, 1024)
+# BQ.fit_hypers at max_obs 1024 on the recipe (the fused route, the tiles)
+LARGE_FIT_MAX_OBS = 1024
 
 
 def large_data(max_obs: int):
@@ -1350,6 +1365,35 @@ def check_large_kernels(dev) -> dict:
     return {"gaussian_gram": max(c["max_abs_err"] for c in gram), "cholesky_blocked": max(c["max_abs_err"] for c in chol),
             "tri_solve_blocked": max(c["max_abs_err"] for c in tri),
             "cholesky_batched": max(c["max_abs_err"] for c in batched)}
+
+
+def large_mll_case(dev, max_obs: int):
+    """``mll_grad``'s inputs at a large-N shape: the recipe's state at
+    max_obs (s = S_LARGE), the log-GP (n = max_obs) where max_obs < 1024 and
+    the linear GP (n = 1036) at 1024, with FIT_RESTARTS θ rows around the
+    recipe's hypers (exp(log θ0 + 0.4 N(0, 1)), RandomState(8)) →
+    (thetas, s, x, y, mask)."""
+    import torch
+
+    st, _ = large_state(dev, max_obs, "float32")
+    name, theta0, s, x, y, mask = fit_problems(st)[1 if max_obs >= 1024 else 0]
+    rows = np.exp(np.log(theta0.cpu().numpy()) + 0.4 * np.random.RandomState(8).randn(FIT_RESTARTS, 2))
+    return torch.as_tensor(rows, dtype=torch.float32, device=dev), s, x, y, mask
+
+
+def check_large_mll(dev) -> dict:
+    """``mll_grad_batched`` against its twin at the large-N path's shapes,
+    (10, 256) and (10, 1036) (LARGE_MLL_SHAPES: the tiles, four launches a
+    call), by ``mll_vs_plain``'s rule with ``twin_factor`` 2 on the gradient."""
+    cases = [mll_vs_plain(*large_mll_case(dev, m), 1e-7, twin_factor=2.0, max_obs=m, rows="around_theta0")
+             for m in LARGE_MLL_SHAPES]
+    emit("kernels_mll_large_n", tol=dict(mll_rel=MLL_RTOL, grad_norm=MLL_GRAD_NORM_TOL, cond_factor=MLL_COND_FACTOR,
+                                          twin_factor=2.0), cases=cases)
+    for c in cases:
+        check(not c["failures"], f"mll_grad at n = {c['n']}: {c['failures']}")
+    check([c["n"] for c in cases] == [256, 1036] and all(c["B"] == FIT_RESTARTS for c in cases),
+          "mll_grad checked at (10, 256) and (10, 1036)")
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
 LARGE_WRAPPERS = ("esm_fused", "chol_batch", "gaussian_gram", "cholesky_blocked", "tri_solve_blocked", "cholesky_batched")
@@ -1572,6 +1616,68 @@ def large_n_path(dev) -> dict:
     return {"launches": launches, "esm_max_abs_err": max(c["max_abs_err"] for c in esm_cases)}
 
 
+def large_bq(dev, dtype: str):
+    """The large-N recipe at LARGE_FIT_MAX_OBS as a ``BQ`` (s = S_LARGE)."""
+    from tpubq_torch import BQ
+
+    x, l = large_data(LARGE_FIT_MAX_OBS)
+    bq = BQ(x, l, device=dev, dtype=dtype, max_obs=LARGE_FIT_MAX_OBS, n_candidate=12, candidate_thresh=1e-3,
+            s=S_LARGE)
+    return bq.init(params_tl=PARAMS_TL, params_l=PARAMS_L)
+
+
+def large_fit(dev) -> dict:
+    """``BQ.fit_hypers`` at max_obs 1024 on the large-N recipe (1,024 and
+    1,036 rows): the fused route, FIT_ITERS + 1 calls per GP, each
+    ``mll_grad_launches(n)`` launches (the tiles), counted exactly with the
+    counters zeroed before and read after, and timed once. Then, in float64
+    on the CPU: each GP's MLL at the card's fitted hypers must not be below
+    its MLL at the initial hypers, and E[Z] and V[Z] of the card after the fit
+    are held to the port's float64 CPU path with the card's hypers installed
+    (LARGE_ZMEAN_RTOL, LARGE_ZVAR_RTOL)."""
+    import torch
+
+    from tpubq_torch.models import bq as bqm, gp as gpm
+    from tpubq_torch.ops import hopper_kernels as hk
+    from tpubq_torch.ops.kernels import get_kernel
+
+    bq, bq64 = large_bq(dev, "float32"), large_bq("cpu", "float64")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    bq.fit_hypers(ntry=FIT_RESTARTS, seed=FIT_SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**kernel_counts(), "mll_grad": hk.mll_grad_batched.launches}
+    n_s, n_sc = bq.options.max_obs, bq.options.max_nsc
+    want = (FIT_ITERS + 1) * (hk.mll_grad_launches(n_s) + hk.mll_grad_launches(n_sc))
+
+    kfn, _ = get_kernel("gaussian")
+    fitted = {"log_gp": bq.state.gp_log_l.theta.double().cpu(), "linear_gp": bq.state.gp_l.theta.double().cpu()}
+    gains = {}
+    for i, name in enumerate(("log_gp", "linear_gp")):
+        _, theta0, s_, x, y, mask = fit_problems(bq64.state)[i]
+        mll = lambda th: float(gpm.log_mll(kfn, th, s_, x, y, mask, 1e-10))  # noqa: E731
+        gains[name] = dict(theta_initial=theta0.tolist(), theta_card_f32=fitted[name].tolist(),
+                           mll_initial=mll(theta0), mll_card_f32=mll(fitted[name]))
+        kw = {"theta_tl": fitted[name]} if i == 0 else {"theta_l": fitted[name]}
+        bq64._state = bqm.set_params(bq64.state, bq64.options, **kw)  # the linear GP's data follow θ_tl
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    res = dict(max_obs=LARGE_FIT_MAX_OBS, rows=(n_s, n_sc), s=S_LARGE, seconds=seconds, launches=launches,
+               mll_grad_launches_expected=want, fit=gains, Z_mean=bq.Z_mean(), Z_mean_f64=bq64.Z_mean(),
+               Z_var=bq.Z_var(), Z_var_f64=bq64.Z_var(),
+               tol=dict(Z_mean=LARGE_ZMEAN_RTOL, Z_var=LARGE_ZVAR_RTOL))
+    res["Z_mean_rel"], res["Z_var_rel"] = rel(res["Z_mean"], res["Z_mean_f64"]), rel(res["Z_var"], res["Z_var_f64"])
+    emit("large_fit", **res)
+    check(launches["mll_grad"] == want,
+          f"fit_hypers at max_obs {LARGE_FIT_MAX_OBS} launched mll_grad {want} times, got {launches['mll_grad']}")
+    for name, g in gains.items():
+        check(g["mll_card_f32"] >= g["mll_initial"], f"the max_obs {LARGE_FIT_MAX_OBS} fit lowered the MLL ({name}: {g})")
+    check(res["Z_mean_rel"] <= LARGE_ZMEAN_RTOL, f"E[Z] after the max_obs {LARGE_FIT_MAX_OBS} fit, f32 card vs f64 CPU")
+    check(res["Z_var_rel"] <= LARGE_ZVAR_RTOL, f"V[Z] after the max_obs {LARGE_FIT_MAX_OBS} fit, f32 card vs f64 CPU")
+    return res
+
+
 def esm_size_routes(dev) -> dict:
     """Which scorer each state size takes (``acquire.esm_route``), and the
     card's float32 scores held to the CPU's float32 scores on the same route
@@ -1665,10 +1771,20 @@ def esm_bytes(G: int, NP: int, NP2: int, d: int = 1) -> float:
     return 4 * (12 + G * d + (3 + d) * NP + NP * NP + (2 + d) * NP2 + NP2 * NP2 + G)
 
 
+def mll_ops(B: int, n: int) -> float:
+    """float32 operations of ``mll_grad_batched`` on B rows of n points:
+    the Cholesky, L⁻¹ and YᵀY (4n³/3), the Gram and the traces (~27 n²)."""
+    return B * (4 * n**3 // 3 + 27 * n * n)
+
+
+def mll_bytes(B: int, n: int) -> float:
+    """Bytes read or written once: θ, s, x, y, the mask, the MLL and gradient."""
+    return 4 * (2 * B + 1 + 2 * n) + n + 4 * 3 * B
+
+
 def esm_fused_turns(args, it: int) -> list:
     """CUDA-event ms per ``esm_fused`` call on packed inputs ``args``, in two
-    turns of ``it`` calls (also what ``profile_main_path.py --kernels``
-    times)."""
+    turns of ``it`` calls."""
     from tpubq_torch.ops import hopper_kernels as hk
 
     return [cuda_ms(lambda: hk.esm_fused(*args), it) for _ in range(2)]
@@ -1677,8 +1793,7 @@ def esm_fused_turns(args, it: int) -> list:
 def chol_blocked_turns(A, it: int = 20) -> tuple:
     """CUDA-event ms per call of ``cholesky_blocked`` and of
     ``torch.linalg.cholesky_ex`` on A, each in turn (kernel, library, kernel,
-    library), ``it`` calls a turn → (kernel turns, library turns) (also what
-    ``profile_main_path.py --kernels`` times)."""
+    library), ``it`` calls a turn → (kernel turns, library turns)."""
     import torch
 
     from tpubq_torch.ops import hopper_kernels as hk
@@ -1745,6 +1860,13 @@ def large_timing(dev, label: str) -> dict:
             kernel_ms=min(k_ms), kernel_ms_turns=k_ms, plain_ms=cuda_ms(lambda: hk.cholesky_blocked_plain(A), 1, warmup=0),
             library_ms=min(lib_ms), library_ms_turns=lib_ms, launches_per_call=hk.cholesky_blocked_launches(N), **bound(2 * 4 * N * N, N**3 / 3))
     kern.update(esm_timing(dev))
+    for m in LARGE_MLL_SHAPES:  # mll_grad at (10, 256) and (10, 1036): the tiles
+        thetas, s_, xm, ym, mm = large_mll_case(dev, m)
+        B, nm = thetas.shape[0], xm.shape[0]
+        kern[f"mll_grad_{B}x{nm}"] = dict(
+            kernel_ms=cuda_ms(lambda: hk.mll_grad_batched(thetas, s_, xm, ym, mm, jitter=1e-7), 20),
+            plain_ms=cuda_ms(lambda: hk.mll_grad_batched_plain(thetas, s_, xm, ym, mm, 1e-7), 1, warmup=0),
+            launches_per_call=hk.mll_grad_launches(nm), **bound(mll_bytes(B, nm), mll_ops(B, nm)))
     L = torch.linalg.cholesky(path_gram(rng, n, dev)).contiguous()
     for M in (n, 1, 3, 100):
         R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
@@ -2075,10 +2197,12 @@ def main() -> int:
     mll = check_mll(dev)
     fk = check_fleet_kernels(dev)
     lk = check_large_kernels(dev)
+    lm = check_large_mll(dev)
     fleet_precision(dev)
     mp = main_path(dev)
     fp = fleet_path(dev)
     lp = large_n_path(dev)
+    lf = large_fit(dev)
     esm_size_routes(dev)
     esm_beyond_1024(dev)
     s0_observation(dev)
@@ -2092,7 +2216,6 @@ def main() -> int:
     NP, NP2 = mp["bq"].options.max_nsc, mp["bq"].options.max_obs
     cB, cn = 200, 32  # marginalize(n=100): the two-rung stack of 100 Grams
     mB, mn = FIT_RESTARTS, NP  # the linear GP's fit; the log-GP's is (10, NP2)
-    mll_ops = mB * (4 * mn**3 // 3 + 27 * mn * mn)  # Cholesky, L⁻¹, YᵀY, Gram and traces
     chol_t, mll_ms = t["chol_batch"][f"{cB}x{cn}x{cn}"], t["mll_grad"][f"{mB}x{mn}"]
     # The fleet kernels at the fleet path's shape: B problems × G points, NP rows of the
     # linear GP and NP2 of the log-GP per problem. Bytes: every per-problem input and the
@@ -2119,10 +2242,14 @@ def main() -> int:
         dict(name="mll_grad_batched", route="cuda", source="tpubq_torch/csrc/mll_grad.cu",
              replaces="tpubq/ops/pallas_kernels.py:304", launches=mp["launches"]["mll_grad"],
              max_abs_err=mll["max_abs_err"], ms=mll_ms["kernel_ms"], plain_ms=mll_ms["plain_ms"],
-             **bound(4 * (2 * mB + 1 + 2 * mn) + mn + 4 * 3 * mB, mll_ops), library_ms=None,
+             **bound(mll_bytes(mB, mn), mll_ops(mB, mn)), library_ms=None,
              shape=f"({mB}, {mn})", dependent_steps=3 * mn, autograd_ms=mll_ms["autograd_ms"],
              ms_at_10x32=t["mll_grad"][f"{mB}x{NP2}"]["kernel_ms"],
-             fleet_launches=fp["launches"]["mll_grad"], fleet_max_abs_err=fk["mll_max_abs_err"]),
+             fleet_launches=fp["launches"]["mll_grad"], fleet_max_abs_err=fk["mll_max_abs_err"],
+             large_fit_launches=lf["launches"]["mll_grad"], large_max_abs_err=lm["max_abs_err"],
+             **{f"at_{k[len('mll_grad_'):]}": {q: v[q] for q in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                                                  "launches_per_call")}
+                for k, v in lt["kernels"].items() if k.startswith("mll_grad_")}),
         dict(name="esm_fleet_l", route="cuda", source="tpubq_torch/csrc/esm_fleet_l.cu",
              replaces="tpubq/ops/pallas_kernels.py:902", launches=fp["launches"]["esm_fleet_l"],
              max_abs_err=max(fk["l_max_abs_err"], fp["l_max_abs_err"]), ms=fl_t["esm_fleet_l_ms"],

@@ -23,7 +23,9 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
   choose_next plus one add at an interior point between two observations, by
   the full refit or by a fast incremental step (``add_observation_fast``);
 * ``large_marginalize`` — marginalize over 100 given θ_tl rows at max_obs
-  1024 (the (200, 1024, 1024) rung stack on cholesky_batched).
+  1024 (the (200, 1024, 1024) rung stack on cholesky_batched);
+* ``large_fit_hypers`` — ``fit_hypers`` at max_obs 1024 on that recipe (10
+  restarts × 150 Adam steps over the mll_grad tiles).
 
 For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
@@ -31,11 +33,11 @@ busy time under ``torch.profiler`` (the union of the kernels' intervals on the
 device timeline), the idle share 1 − busy / wall, and the kernel count. The
 per-operator tables go to ``--out``. Imports nothing from JAX.
 
-``--kernels`` times kernels alone instead, through chip_smoke.py's timing
-helpers (CUDA events, two turns each): ``cholesky_blocked`` at n ∈
-``chip_smoke.LARGE_CHOL_TIMING_N`` beside ``torch.linalg.cholesky_ex``
-(``chol_blocked_turns``), and ``esm_fused`` (``esm_fused_turns``) at the main
-path's (G 10⁴, NP 44) and the large-N path's (G 512, NP 1036) states.
+``--kernels`` times kernels alone instead (``kernel_cases``): every kernel
+of PERF.md's table at the paths' shapes (``mll_grad`` at (10, 32), (10, 44),
+(640, 32), (10, 256) and (10, 1036)), with the library call beside it where
+there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
+and as device ms per call from ``torch.profiler``'s per-kernel durations.
 ``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
 say), so that two versions of the kernels are timed by the same code in one
 call: parent, change, change, parent.
@@ -141,32 +143,128 @@ def main() -> int:
         profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out)
         profile_fleet(dev, grid, args.iters, out)
         profile_large_n(dev, args.iters, out)
+        profile_large_fit(dev, out)
     bq._state = st
     return 0
 
 
-def kernel_times(dev, label: str) -> None:
-    """One JSON line per kernel shape: CUDA-event ms per call in two turns
-    (kernel, then the library call beside it), on the inputs chip_smoke.py
-    builds, timed by chip_smoke.py's own helpers."""
+def device_ms(fn, iters: int) -> tuple:
+    """(ms of device time per call, {device activity: ms per call}) over
+    ``iters`` calls of ``fn`` under ``torch.profiler``: the summed durations of
+    every kernel, memset and copy the calls put on the device, so that a
+    kernel shorter than its wrapper's host cost is read at its own length."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:60]
+            by[key] = by.get(key, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3 / iters
+    cs.check(bool(by), "the profiler saw device activity")
+    return sum(by.values()), by
+
+
+def kernel_cases(dev) -> list:
+    """(kernel, shape, call, calls per timing) for every kernel row of
+    PERF.md's table, on the inputs chip_smoke.py builds: the main path's
+    shapes, the fleet's at B = 64, and the large-N path's at max_obs 1024;
+    ``mll_grad`` also at (640, 32), (10, 256) and (10, 1036)."""
     import torch
 
-    from tpubq_torch.models import acquire
+    from tpubq_torch.models import acquire, batched, fit as fitm
+    from tpubq_torch.ops import hopper_kernels as hk
 
     rng = np.random.RandomState(9)
-    for n in cs.LARGE_CHOL_TIMING_N:
-        k_ms, lib_ms = cs.chol_blocked_turns(cs.path_gram(rng, n, dev), 50)
-        turns = {"cholesky_blocked": k_ms, "cholesky_ex": lib_ms}
-        print(json.dumps({"kernel": "cholesky_blocked", "card": label, "n": n, "ms_turns": turns,
-                          "ms": {k: min(v) for k, v in turns.items()}}), flush=True)
+    cases = []
+    bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
+    grid = torch.linspace(-4.0, 4.0, cs.G, device=dev)[:, None]
+    small = acquire.esm_fused_inputs(bq.state, bq.options, grid)
     st, opts = cs.large_state(dev, 1024, "float32")
     big = acquire.esm_fused_inputs(st, opts, torch.linspace(-4.0, 4.0, cs.LARGE_G, device=dev)[:, None])
-    small_bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
-    small = acquire.esm_fused_inputs(small_bq.state, small_bq.options, torch.linspace(-4.0, 4.0, cs.G, device=dev)[:, None])
-    for name, args, iters in (("G512_NP1036", big, 5), ("G10000_NP44", small, 200)):
-        turns = cs.esm_fused_turns(args, iters)
-        print(json.dumps({"kernel": "esm_fused", "card": label, "shape": name, "NP": args[2].shape[0],
-                          "G": args[1].shape[0], "ms_turns": turns, "ms": min(turns)}), flush=True)
+    cases += [("esm_fused", "G10000_NP44", lambda: hk.esm_fused(*small), 200),
+              ("esm_fused", "G512_NP1036", lambda: hk.esm_fused(*big), 5)]
+    Ks = cs._gram_stack(200, 32, 21, rng, dev)
+    cases.append(("chol_batch", "200x32x32", lambda: hk.chol_batch(Ks), 200))
+    gen = torch.Generator().manual_seed(cs.FIT_SEED)
+    for _, theta0, s, x, y, mask in cs.fit_problems(bq.state):
+        th = torch.exp(fitm.random_restarts(gen, theta0, x, y, mask, cs.FIT_RESTARTS))
+        cases.append(("mll_grad", f"{cs.FIT_RESTARTS}x{x.shape[0]}",
+                      lambda th=th, s=s, x=x, y=y, mask=mask: hk.mll_grad_batched(th, s, x, y, mask, jitter=1e-7), 200))
+    fleet, fopts = cs.fleet_state(dev, cs.FLEET_B, cs.FLEET_N_OBS, cs.FLEET_MAX_OBS, s=cs.S_MAIN)
+    g = fleet.gp_log_l
+    th = torch.exp(fitm.random_restarts(gen, g.theta[0], fleet.x_s[0], fleet.tl_s[0], fleet.obs_mask[0],
+                                        cs.FIT_RESTARTS)).repeat(cs.FLEET_B, 1)
+    cases.append(("mll_grad", f"{th.shape[0]}x{fleet.x_s.shape[1]}",
+                  lambda: hk.mll_grad_batched(th, g.s, fleet.x_s, fleet.tl_s, fleet.obs_mask, jitter=1e-7), 100))
+    for m in cs.LARGE_MLL_SHAPES:
+        th_l, s_l, x_l, y_l, m_l = cs.large_mll_case(dev, m)
+        cases.append(("mll_grad", f"{th_l.shape[0]}x{x_l.shape[0]}",
+                      lambda th_l=th_l, s_l=s_l, x_l=x_l, y_l=y_l, m_l=m_l:
+                      hk.mll_grad_batched(th_l, s_l, x_l, y_l, m_l, jitter=1e-7), 50 if m < 1024 else 10))
+    (params, w_l, *rest_l), (h2, w_tl, *rest_tl), _ = batched.fleet_scorer_inputs(fleet, fopts)
+    thresh, lam = fopts.candidate_thresh, batched._LAM_F32
+    cases += [("esm_fleet_l", f"B{cs.FLEET_B}_G{cs.G}_NP{fopts.max_nsc}",
+               lambda: hk.esm_fleet_l(params, w_l, grid, *rest_l, thresh, lam), 50),
+              ("esm_fleet_tl", f"B{cs.FLEET_B}_G{cs.G}_NP2={fopts.max_obs}",
+               lambda: hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl), 50)]
+    n = cs.LARGE_TIMING_N[0]
+    xg = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=dev)
+    thg = torch.tensor(cs.PARAMS_L, device=dev)
+    cases.append(("gaussian_gram", f"{n}x{n}", lambda: hk.gaussian_gram(thg, xg, xg), 200))
+    for B, N in cs.LARGE_TIMING_BATCHED:
+        Kb = torch.stack([cs.path_gram(rng, N, dev) for _ in range(8)]).repeat(B // 8, 1, 1).contiguous()
+        cases += [("cholesky_batched", f"{B}x{N}x{N}", lambda Kb=Kb: hk.cholesky_batched(Kb), 3),
+                  ("cholesky_ex (library)", f"{B}x{N}x{N}", lambda Kb=Kb: torch.linalg.cholesky_ex(Kb), 3)]
+    for N in cs.LARGE_CHOL_TIMING_N:
+        A = cs.path_gram(rng, N, dev)
+        cases += [("cholesky_blocked", f"{N}x{N}", lambda A=A: hk.cholesky_blocked(A), 50),
+                  ("cholesky_ex (library)", f"{N}x{N}", lambda A=A: torch.linalg.cholesky_ex(A), 50)]
+    L = torch.linalg.cholesky(cs.path_gram(rng, n, dev)).contiguous()
+    for M in (n, 1):
+        R = torch.eye(n, device=dev) if M == n else torch.as_tensor(rng.randn(n, M), dtype=torch.float32, device=dev)
+        cases += [("tri_solve_blocked", f"{n}x{n}_x_{M}", lambda R=R: hk.tri_solve_blocked(L, R), 20),
+                  ("solve_triangular (library)", f"{n}x{n}_x_{M}",
+                   lambda R=R: torch.linalg.solve_triangular(L, R, upper=False), 20)]
+    return cases
+
+
+def kernel_times(dev, label: str) -> None:
+    """One JSON line per kernel and shape (``kernel_cases``): CUDA-event ms
+    per call over a loop of wrapper calls, in two turns (what chip_smoke.py
+    reports, the host's pace where a kernel is shorter than its wrapper), and
+    the device ms per call under ``torch.profiler`` (``device_ms``). A shape
+    this version of the package does not take is reported as such."""
+    for kernel, shape, fn, it in kernel_cases(dev):
+        try:
+            turns = [cs.cuda_ms(fn, it) for _ in range(2)]
+        except ValueError as e:
+            print(json.dumps({"kernel": kernel, "shape": shape, "card": label, "unsupported": str(e)}), flush=True)
+            continue
+        dms, by = device_ms(fn, it)
+        print(json.dumps({"kernel": kernel, "shape": shape, "card": label, "event_ms_turns": turns,
+                          "event_ms": min(turns), "device_ms": dms, "device_ms_by_activity": by}), flush=True)
+
+
+def profile_large_fit(dev, out) -> None:
+    """``BQ.fit_hypers`` at max_obs 1024 on the large-N recipe, from its
+    initial state: the fused Adam route over the tiles, or in a version that
+    caps ``mll_grad`` the L-BFGS over autograd."""
+    bq = cs.large_bq(dev, "float32")
+    st0 = bq.state
+
+    def fit():
+        bq._state = st0
+        bq.fit_hypers(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
+
+    profile_piece("large_fit_hypers", fit, 1, out)
 
 
 def profile_large_n(dev, iters: int, out) -> None:

@@ -83,6 +83,23 @@ def test_mll_grad_plain_matches_pallas_interpret(pad, jitter):
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("n,live", [(136, 100), (176, 120)])
+def test_mll_grad_plain_matches_pallas_interpret_beyond_the_old_cap(n, live):
+    """The twin of both kernel regimes against the Pallas kernel in
+    interpret mode past 128 rows (the card's tiled regime) and past the old
+    167-row cap, with pads: the tolerances of the test above (measured
+    ≤ 9e-6 relative on the MLL, ≤ 5e-5 relative on the gradient)."""
+    x, y, mask = _sine_data(n=live, pad=n - live)
+    mll_j, g_j = pk.mll_grad_batched(
+        jnp.asarray(THETAS, jnp.float32), 0.1, jnp.asarray(x, jnp.float32),
+        jnp.asarray(y, jnp.float32), jnp.asarray(mask), jitter=1e-7, interpret=True)
+    mll_t, g_t = hk.mll_grad_batched(
+        _t(THETAS, torch.float32), 0.1, _t(x, torch.float32), _t(y, torch.float32),
+        torch.as_tensor(mask), jitter=1e-7)
+    np.testing.assert_allclose(mll_t.numpy(), np.asarray(mll_j), rtol=1e-4)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-3, atol=1e-3)
+
+
 def test_mll_grad_plain_matches_float64_autograd_and_ignores_pads():
     """The float32 twin against the port's float64 log_mll / dlog_mll at the
     JAX suite's pin (tests/test_pallas.py: rtol 5e-4 on the MLL, rtol 5e-3 /
@@ -118,8 +135,11 @@ def test_mll_grad_wrapper_rejects_bad_input():
         hk.mll_grad_batched(_t(THETAS, f32)[:, :1], *good[1:])
     with pytest.raises(ValueError, match="mask"):
         hk.mll_grad_batched(*good[:4], torch.as_tensor(mask).float())
-    assert hk.mll_grad_supported(44) and hk.mll_grad_supported(167)
-    assert not hk.mll_grad_supported(168)
+    # no size cap: one block per row up to 128 rows, four launches of tiles above
+    assert [hk.mll_grad_launches(n) for n in (1, 44, 128, 129, 168, 1036)] == [1, 1, 1, 4, 4, 4]
+    empty = (_t(np.zeros((0, 1)), f32), _t(np.zeros(0), f32), torch.zeros(0, dtype=torch.bool))
+    with pytest.raises(ValueError, match="at least one data row"):
+        hk.mll_grad_batched(*good[:2], *empty)
 
 
 def test_dlog_mll_matches_jax_and_confines_a_failed_row():
@@ -190,6 +210,35 @@ def test_fused_fit_matches_jax_step_for_step_and_at_the_optimum():
     th_f, _ = tfit.fit_params_fused(theta0, s, xt, yt, mt, torch.Generator(), inits, n_iter=5,
                                     free_mask=torch.tensor([True, False]))
     assert th_f[1].item() == theta0[1] and th_f[0].item() != theta0[0]
+
+
+def test_fit_hypers_takes_the_fused_route_past_the_old_cap(monkeypatch):
+    """float32 at max_obs 176 (the log-GP's 176 rows, the linear GP's 188,
+    past the old 167-row cap): ``BQ.fit_hypers`` fits both GPs with
+    ``fit_params_fused``, as the JAX package routes them, not with the
+    L-BFGS. Each fit, cut to 3 Adam steps, is held step for step to the JAX
+    ``fit_params_fused`` over the interpret-mode Pallas kernel from the same
+    data and the port's own restart rows: log θ to atol 1e-4 and the best MLL
+    to rtol 1e-4 (the tolerances of the step-for-step test above)."""
+    calls = []
+    fused = tfit.fit_params_fused
+
+    def spy(theta0, s, x, y, mask, gen, restart_inits=None, **kw):
+        th, mll = fused(theta0, s, x, y, mask, gen, restart_inits, n_iter=3, **kw)
+        calls.append((theta0, s, x, y, mask, restart_inits, th, mll))
+        return th, mll
+
+    monkeypatch.setattr(tfit, "fit_params_fused", spy)
+    monkeypatch.setattr(tfit, "fit_params", lambda *a, **k: pytest.fail("the L-BFGS route ran"))
+    _testbed("float32", max_obs=176).fit_hypers(seed=0)
+    assert [c[2].shape[0] for c in calls] == [176, 188]
+    for theta0, s, x, y, mask, inits, th, mll in calls:
+        th_j, mll_j = jfit.fit_params_fused(
+            jnp.asarray(theta0.numpy()), float(s), jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+            jnp.asarray(mask.numpy()), jax.random.PRNGKey(0), jnp.asarray(inits.numpy()), n_iter=3,
+            interpret=True)
+        np.testing.assert_allclose(np.log(th.numpy()), np.log(np.asarray(th_j)), atol=1e-4)
+        np.testing.assert_allclose(float(mll), float(mll_j), rtol=1e-4)
 
 
 def test_fit_params_reaches_the_jax_optimum():

@@ -13,7 +13,8 @@ inputs — the batched Cholesky at rtol 2e-4 / atol 5e-5 (the pin of
 tests/test_pallas.py for the TPU kernel), the ESM scorer at 1e-4 of the
 largest score (f32 sums in another order; expf against torch.exp), the fused
 MLL-and-gradient at 1e-4 relative on the MLL and 1e-3 of the row's largest
-gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4); the
+gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4), and
+on the large-N recipe's Grams (s = 0.05) at max(that, 4·eps32·κ) per row; the
 two fleet scorer kernels, on fleets with noise 0.05, at 1e-4 of each problem's
 largest value for m_a, c_a, A and the combined score and 1e-3 for B (a
 quotient by the Schur complement), off the few points where the degenerate
@@ -215,29 +216,80 @@ def _mll_problem(rng, B, n, live, device):
             torch.arange(n, device=device) < live)
 
 
-@pytest.mark.parametrize("B,n,live", [(10, 32, 10), (10, 44, 22), (1, 5, 5), (3, 167, 120)])
-def test_mll_grad_kernel_matches_plain(cuda, B, n, live):
-    """The fit's shapes (10, 32) and (10, 44), a tiny problem, and the largest
-    supported n (two n × n matrices in 227 KB of shared memory)."""
-    thetas, x, y, mask = _mll_problem(np.random.RandomState(5), B, n, live, cuda)
-    assert hk.mll_grad_supported(n)
+def _large_n_mll_case(device, n):
+    """The large-N recipe's data at s = 0.05 (``_large_n_state``): the log-GP
+    at max_obs 300 (n = 300), or the linear GP at max_obs 1024 (n = 1036),
+    with 10 θ rows around the recipe's hypers."""
+    linear = n == 1036
+    st, _ = _large_n_state(device, n - 12 if linear else n)
+    if linear:
+        x, y, mask, theta0 = st.x_sc, torch.where(st.sc_mask, st.l_sc, torch.zeros_like(st.l_sc)), st.sc_mask, PARAMS_L
+    else:
+        x, y, mask, theta0 = st.x_s, st.tl_s, st.obs_mask, PARAMS_TL
+    assert x.shape[0] == n
+    rng = np.random.RandomState(8)
+    thetas = torch.as_tensor(np.exp(np.log(theta0) + 0.4 * rng.randn(10, 2)), dtype=torch.float32, device=device)
+    return thetas, x, y, mask, 0.05
+
+
+def _live_condition(thetas, x, mask, s, jitter):
+    """Each row's live Gram condition number, float64 on the card."""
+    xl = x[mask].double()
+    th = thetas.double()
+    K = th[:, :1, None] ** 2 * torch.exp(-0.5 * ((xl - xl.T)[None] / th[:, 1:, None]) ** 2)
+    K = K + torch.eye(xl.shape[0], dtype=torch.float64, device=x.device) * (s**2 + jitter * th[:, :1, None] ** 2)
+    ev = torch.linalg.eigvalsh(K)
+    return (ev[:, -1] / ev[:, 0]).cpu()
+
+
+@pytest.mark.parametrize("n", [5, 32, 44, 64, 65, 128, 129, 167, 300, 1036])
+def test_mll_grad_kernel_matches_plain(cuda, n):
+    """B = 10 rows at both regimes and their edges: one block per row up to
+    128 rows (NP = 16, 32, 64, 128 with identity pads), 64 × 64 tiles above
+    (129: one row in the last tile). Up to 167 rows well-conditioned rows
+    (noise 0.1), at 300 and 1036 the large-N recipe's data (s = 0.05). One
+    block per row: 1e-4 relative on the MLL and 1e-3 of the row's largest
+    gradient entry. The tiles, whose blocked sums and rsqrt pivots round
+    otherwise than the twin's column recursion: chip_smoke.py's rule, row by
+    row at max(that, 4·eps32·κ), κ the row's live Gram condition number in
+    float64, and the gradient also at twice the twin's own largest distance
+    to float64 over the case (its n² terms cancel). Two calls are
+    bit-identical."""
+    if n <= 167:
+        live = {5: 5, 32: 10, 44: 22, 64: 40, 65: 50, 128: 100, 129: 100, 167: 120}[n]
+        thetas, x, y, mask = _mll_problem(np.random.RandomState(5), 10, n, live, cuda)
+        s = 0.1
+    else:
+        thetas, x, y, mask, s = _large_n_mll_case(cuda, n)
     before = hk.mll_grad_batched.launches
-    mll, grad = hk.mll_grad_batched(thetas, 0.1, x, y, mask, jitter=1e-7)
-    mll2, grad2 = hk.mll_grad_batched(thetas, torch.tensor(0.1, device=cuda), x, y, mask, jitter=1e-7)
+    mll, grad = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7)
+    mll2, grad2 = hk.mll_grad_batched(thetas, torch.tensor(s, device=cuda), x, y, mask, jitter=1e-7)
     torch.cuda.synchronize()
-    assert hk.mll_grad_batched.launches == before + 2
+    assert hk.mll_grad_batched.launches == before + 2 * hk.mll_grad_launches(n)
+    assert hk.mll_grad_launches(n) == (1 if n <= 128 else 4)
     assert torch.equal(mll, mll2) and torch.equal(grad, grad2)  # fixed summation order
-    ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, 0.1, x, y, mask, 1e-7)
-    torch.testing.assert_close(mll, ref_mll, rtol=1e-4, atol=0.0)
-    scale = ref_grad.abs().amax(-1, keepdim=True)
-    assert bool(((grad - ref_grad).abs() <= 1e-3 * scale).all())
+    ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, 1e-7)
+    assert bool(torch.isfinite(mll).all() and torch.isfinite(grad).all())
+    norm = lambda g, ref: ((g - ref).abs().amax(-1) / ref.abs().amax(-1)).cpu()  # noqa: E731
+    e_mll, e_grad = ((mll - ref_mll).abs() / ref_mll.abs()).cpu(), norm(grad, ref_grad)
+    tol_mll, tol_grad = torch.full((10,), 1e-4), torch.full((10,), 1e-3)
+    if n > 128:
+        _, g64 = hk.mll_grad_batched_plain(thetas.double(), s, x.double(), y.double(), mask, 1e-7)
+        twin = float(norm(ref_grad.double(), g64).max())
+        eps_kappa = (4.0 * torch.finfo(torch.float32).eps * _live_condition(thetas, x, mask, s, 1e-7)).float()
+        tol_mll, tol_grad = torch.clamp(eps_kappa, min=1e-4), torch.clamp(eps_kappa, min=max(1e-3, 2.0 * twin))
+    assert bool((e_mll <= tol_mll).all()), (e_mll, tol_mll)
+    assert bool((e_grad <= tol_grad).all()), (e_grad, tol_grad)
 
 
 def test_mll_grad_kernel_rejects_what_it_does_not_take(cuda):
+    """168 rows, past the old shared-memory cap, go to the tiles and match
+    the twin; a float64 row or data on another device raise."""
     thetas, x, y, mask = _mll_problem(np.random.RandomState(6), 2, 168, 100, cuda)
-    assert not hk.mll_grad_supported(168)
-    with pytest.raises(ValueError, match="shared-memory budget"):
-        hk.mll_grad_batched(thetas, 0.1, x, y, mask)
+    mll, grad = hk.mll_grad_batched(thetas, 0.1, x, y, mask)
+    ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, 0.1, x, y, mask)
+    torch.testing.assert_close(mll, ref_mll, rtol=1e-4, atol=0.0)
+    assert bool(((grad - ref_grad).abs() <= 1e-3 * ref_grad.abs().amax(-1, keepdim=True)).all())
     thetas, x, y, mask = _mll_problem(np.random.RandomState(6), 2, 12, 12, cuda)
     with pytest.raises(TypeError):
         hk.mll_grad_batched(thetas.double(), 0.1, x, y, mask)
@@ -245,11 +297,17 @@ def test_mll_grad_kernel_rejects_what_it_does_not_take(cuda):
         hk.mll_grad_batched(thetas, 0.1, x.cpu(), y, mask)
 
 
-def test_fit_hypers_on_card_goes_through_the_kernel(cuda):
-    bq = _testbed_bq(cuda)
+@pytest.mark.parametrize("max_obs", [32, 256])
+def test_fit_hypers_on_card_goes_through_the_kernel(cuda, max_obs):
+    """The fused route at any size: 151 calls per GP (150 Adam steps and the
+    ranking), each ``mll_grad_launches(n)`` launches: 302 at max_obs 32 (32
+    and 44 rows), 1,208 at max_obs 256 (256 and 268 rows, the tiles)."""
+    bq = _testbed_bq(cuda, max_obs=max_obs)
     before = hk.mll_grad_batched.launches
     bq.fit_hypers(seed=0)
-    assert hk.mll_grad_batched.launches == before + 2 * 151
+    want = 151 * (hk.mll_grad_launches(max_obs) + hk.mll_grad_launches(max_obs + 12))
+    assert want == {32: 302, 256: 1208}[max_obs]
+    assert hk.mll_grad_batched.launches == before + want
     Z = np.exp(-0.5 * 0.2**2 / 1.25) / np.sqrt(2.0 * np.pi * 1.25)
     assert abs(bq.Z_mean() - Z) / Z < 5e-3
 
@@ -355,17 +413,19 @@ def test_fleet_kernels_raise_on_what_they_do_not_take(cuda):
         hk.esm_fleet_l(params.cpu(), w_l, grid, *rest_l, 0.2, 1e-6)
 
 
-def test_mll_grad_kernel_per_problem_data_matches_plain(cuda):
-    """640 rows on 64 problems' data in one launch against the twin, and a
-    fleet of one problem against the shared-data form to the bit."""
-    states, _ = _fleet_state(cuda, 64, 8, 32, s=0.1)
+@pytest.mark.parametrize("max_obs", [32, 256])
+def test_mll_grad_kernel_per_problem_data_matches_plain(cuda, max_obs):
+    """640 rows on 64 problems' data in one call against the twin, at 32 rows
+    (one block per row) and 256 (the tiles), and a fleet of one problem
+    against the shared-data form to the bit."""
+    states, _ = _fleet_state(cuda, 64, 8, max_obs, s=0.1)
     x, y, mask, s = states.x_s, states.tl_s, states.obs_mask, states.gp_log_l.s
     rng = np.random.RandomState(3)
     thetas = torch.as_tensor(np.exp(np.log([0.7, 0.8]) + 0.4 * rng.randn(640, 2)), dtype=torch.float32, device=cuda)
     before = hk.mll_grad_batched.launches
     mll, grad = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7)
     torch.cuda.synchronize()
-    assert hk.mll_grad_batched.launches == before + 1
+    assert hk.mll_grad_batched.launches == before + hk.mll_grad_launches(max_obs)
     ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, 1e-7)
     torch.testing.assert_close(mll, ref_mll, rtol=1e-4, atol=1e-4)
     assert bool(((grad - ref_grad).abs() <= 1e-3 * ref_grad.abs().amax(-1, keepdim=True)).all())

@@ -18,8 +18,7 @@
 // that is not positive definite gets NaN (sqrt of a negative pivot) in its
 // own output only, which the float32 jitter ladder reads. Entries above the
 // diagonal are exact zeros. Only the lower triangle of the input is read.
-// The column recursion itself lives in chol_columns.cuh, which mll_grad.cu
-// shares (there with a clamped pivot).
+// The column recursion itself lives in chol_columns.cuh.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +39,7 @@ __global__ void chol_batch_kernel(const float* __restrict__ A, float* __restrict
   for (int i = tid; i < n * n; i += T) a[i] = Ab[i];
   __syncthreads();
 
-  tpubq_dev::chol_columns<false>(a, dg, n, tid, T);
+  tpubq_dev::chol_columns(a, dg, n, tid, T);
 
   for (int t = tid; t < n * n; t += T) {
     const int i = t / n;

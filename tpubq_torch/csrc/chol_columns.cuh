@@ -1,9 +1,7 @@
-// The right-looking column Cholesky recursion shared by the kernels that
-// factor one matrix per thread block (chol_batch.cu, mll_grad.cu).
+// The right-looking column Cholesky recursion of chol_batch.cu, one matrix
+// per thread block.
 
 #pragma once
-
-#include <cfloat>
 
 namespace tpubq_dev {
 
@@ -13,19 +11,13 @@ namespace tpubq_dev {
 // triangle are not meaningful. The caller has synchronized the block after
 // writing `a`; the block is synchronized again on return.
 //
-// kClampPivot = false: the pivot is sqrt(c_jj) as it comes, so a matrix that
-// is not positive definite turns NaN from its first bad pivot on.
-// kClampPivot = true: the pivot is sqrt(max(c_jj, FLT_MIN)) with a NaN c_jj
-// kept, so such a matrix gives huge or non-finite numbers for the caller to
-// filter, and a log of the pivot stays finite.
-template <bool kClampPivot>
+// The pivot is sqrt(c_jj) as it comes, so a matrix that is not positive
+// definite turns NaN from its first bad pivot on.
 __device__ __forceinline__ void chol_columns(float* a, float* dg, int n, int tid, int T) {
   for (int j = 0; j < n; ++j) {
     // column j: pivot, then scale the entries below it (a[j][j] is not
     // written here, so every thread reads the same pivot without a barrier)
-    float c = a[j * n + j];
-    if (kClampPivot) c = c < FLT_MIN ? FLT_MIN : c;
-    const float d = sqrtf(c);
+    const float d = sqrtf(a[j * n + j]);
     for (int i = j + 1 + tid; i < n; i += T) a[i * n + j] = a[i * n + j] / d;
     if (tid == 0) dg[j] = d;
     __syncthreads();

@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from tpubq_torch.models import acquire, bq as bqm, fit as fitm, marginalize as margm
-from tpubq_torch.ops import hopper_kernels as hk
 from tpubq_torch.utils.device import resolve_device
 from tpubq_torch.utils.options import FIELD_NAMES as _OPTION_KEYS, BQOptions, parse_bq_kwargs
 
@@ -149,11 +148,11 @@ class BQ:
 
         Route: float32, the gaussian kernel, d = 1 and a fixed noise go
         through ``fit_params_fused`` (Adam over the ``mll_grad_batched``
-        kernel: launched on a CUDA device, its plain twin on the CPU) where
-        ``mll_grad_supported`` covers the GP's size; everything else through
-        the batched L-BFGS of ``fit_params`` / ``fit_params_with_noise``. The
-        route is decided here from dtype and shape; once chosen, a kernel that
-        fails to build or launch raises.
+        kernel: launched on a CUDA device, its plain twin on the CPU) at any
+        size, as the JAX package routes them; everything else through the
+        batched L-BFGS of ``fit_params`` / ``fit_params_with_noise``. The
+        route is decided here from dtype and options; once chosen, a kernel
+        that fails to build or launch raises.
         """
         st, opts = self.state, self.options
         fit_noise, free_mask = fitm.resolve_param_names(
@@ -168,7 +167,7 @@ class BQ:
                 return fitm.fit_params_with_noise(
                     opts.kernel, theta, s, x, y, mask, gen, n_restart=ntry, free_mask=free_mask)
             inits = fitm.random_restarts(gen, theta, x, y, mask, ntry, kernel=opts.kernel)
-            if fused_ok and hk.mll_grad_supported(x.shape[0]):
+            if fused_ok:
                 th, mll = fitm.fit_params_fused(theta, s, x, y, mask, gen, inits, free_mask=free_mask)
             else:
                 th, mll = fitm.fit_params(

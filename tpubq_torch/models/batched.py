@@ -408,9 +408,7 @@ def expected_Z_var_batch(states: BQState, opts: BQOptions, grids, per_problem: b
 
 
 def _fused_fit_ok(opts: BQOptions, fit_noise: bool) -> bool:
-    return (not fit_noise and opts.kernel == "gaussian" and opts.dim == 1
-            and opts.dtype == "float32" and hk.mll_grad_supported(opts.max_obs)
-            and hk.mll_grad_supported(opts.max_nsc))
+    return not fit_noise and opts.kernel == "gaussian" and opts.dim == 1 and opts.dtype == "float32"
 
 
 def fit_batch(states: BQState, opts: BQOptions, gen: torch.Generator, ntry: int = 10,
@@ -421,9 +419,10 @@ def fit_batch(states: BQState, opts: BQOptions, gen: torch.Generator, ntry: int 
     across the fleet. ``fit_noise``: also fit each GP's observation noise.
 
     Route: float32, the gaussian kernel, d = 1 and a fixed noise advance all
-    B·ntry restart rows of a GP in ONE ``mll_grad_batched`` launch per Adam
-    iteration (``fit_params_fused`` on the fleet's data), so a whole fleet fit
-    is 2·(n_iter + 1) launches. Everything else loops the problems over
+    B·ntry restart rows of a GP in ONE ``mll_grad_batched`` call per Adam
+    iteration (``fit_params_fused`` on the fleet's data) at any size, so a
+    whole fleet fit is 2·(n_iter + 1) calls (``mll_grad_launches(n)`` launches
+    each). Everything else loops the problems over
     ``fit_params`` / ``fit_params_with_noise``; the refits between and after
     the two stages are batched either way.
     """

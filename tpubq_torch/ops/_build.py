@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("esm_fused.cu", "chol_batch.cu", "mll_grad.cu", "esm_fleet_l.cu", "esm_fleet_tl.cu",
            "gaussian_gram.cu", "chol_blocked.cu", "tri_solve_blocked.cu", "chol_batched.cu")
 #: Headers the sources include (hashed with them, never compiled alone).
-HEADERS = ("chol_columns.cuh", "esm_fleet_common.cuh", "tri_block.cuh")
+HEADERS = ("chol_columns.cuh", "chol_tile.cuh", "esm_fleet_common.cuh", "tri_block.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -36,7 +36,7 @@ _ip = ctypes.POINTER(ctypes.c_int)
 _SIG = {
     "tpubq_esm_fused": ([_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p], _i),
     "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _i, _p], _i),
-    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _i, _i, _p, _p, _p], _i),
+    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _p, _p, _p, _p, _p], _i),
     "tpubq_esm_fleet_l": (
         [_p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _i, _f, _f, _i, _i, _p, _p, _p, _p],
         _i,

@@ -9,8 +9,9 @@ Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
   batched float32 Cholesky behind ``marginalize``.
 * ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
   masked log marginal likelihood and its (h, w) gradient for a batch of
-  hyperparameter rows, behind the fused multi-restart fit; the rows may
-  belong to several problems, each with its own data.
+  hyperparameter rows, behind the fused multi-restart fit, at any n (one
+  block per row up to 128 rows, 64 × 64 tiles through a device scratch
+  above); the rows may belong to several problems, each with its own data.
 * ``esm_fleet_l`` (``csrc/esm_fleet_l.cu``) ← ``esm_fleet_l`` and
   ``esm_fleet_tl`` (``csrc/esm_fleet_tl.cu``) ← ``esm_fleet_tl``: the two
   halves of the fleet scorer behind ``BQFleet.choose_next``, B problems × G
@@ -30,10 +31,10 @@ A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its CUDA kernel
 launches in a plain integer attribute (``esm_fused.launches``, …,
 ``tri_solve_blocked.launches``), incremented where the kernel is launched and
-nowhere else; ``esm_fused`` and ``cholesky_batched`` make
-several launches per call (``esm_fused_launches``,
-``cholesky_batched_launches``; ``cholesky_blocked_launches`` and
-``tri_solve_blocked_launches`` are one).
+nowhere else; ``esm_fused``, ``cholesky_batched`` and ``mll_grad_batched``
+above 128 rows make several launches per call (``esm_fused_launches``,
+``cholesky_batched_launches``, ``mll_grad_launches``;
+``cholesky_blocked_launches`` and ``tri_solve_blocked_launches`` are one).
 Callers choose a kernel route from shapes, dtype and device before any
 launch (``kernel_route``). Nothing here imports a CUDA toolchain at import
 time: the library is built by ``_build`` on the first launch.
@@ -57,7 +58,7 @@ __all__ = [
     "chol_batch_supported",
     "mll_grad_batched",
     "mll_grad_batched_plain",
-    "mll_grad_supported",
+    "mll_grad_launches",
     "FLEET_PARAMS",
     "esm_fleet_l",
     "esm_fleet_l_plain",
@@ -85,7 +86,7 @@ __all__ = [
 #: Shared memory one block may use on H100 (227 KB).
 SMEM_LIMIT = 232448
 _CHOL_THREADS = 256
-_MLL_THREADS = 256  # a power of two: the kernel's block-wide sums are a binary tree
+_MLL_SMALL_N = 128  # mll_grad: one block per row up to this n, tiles above
 _LOG2PI = math.log(2.0 * math.pi)
 
 
@@ -125,17 +126,22 @@ def chol_batch_supported(n: int) -> bool:
     return 4 * (n * n + n) <= SMEM_LIMIT
 
 
-def _mll_smem_bytes(n: int) -> int:
-    """Shared memory of one ``mll_grad`` block: two n × n matrices, five
-    n-vectors and five partial sums per thread."""
-    return 4 * (2 * n * n + 5 * n + 5 * _MLL_THREADS)
+def mll_grad_launches(n: int) -> int:
+    """CUDA launches of one ``mll_grad_batched`` call with n data rows: 1 up
+    to 128 rows (one block per θ row, the whole tile in shared memory), 4
+    above (the tiles through a device-memory scratch: factor and inverse,
+    alpha, K⁻¹ with the gradient's partial sums, the finish)."""
+    return 1 if n <= _MLL_SMALL_N else 4
 
 
-def mll_grad_supported(n: int) -> bool:
-    """Whether ``mll_grad_batched`` covers n data rows (pads included): the
-    Gram and its inverse factor, two n × n float32 matrices, within the
-    227 KB of shared memory of one block — n ≤ 167."""
-    return n >= 1 and _mll_smem_bytes(n) <= SMEM_LIMIT
+def _mll_scratch_sizes(B: int, n: int) -> tuple:
+    """(floats, ints) of the scratch of one large-n ``mll_grad_batched``
+    call (``tpubq_mll_grad``): L and Y as (B, NP, NP), NP = 64⌈n/64⌉, the
+    look-ahead tiles, the shares of z = Yy, L's diagonal, alpha and two
+    partial sums per lower tile; the ticket and the tiles' flags."""
+    T = -(-n // 64)
+    NP, U = 64 * T, T * (T + 1) // 2
+    return B * (2 * NP * NP + T * 64 * 68 + 64 * T * T + 2 * NP + 2 * U), 1 + B * (2 * U + T)
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -398,7 +404,8 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
 
     Shapes: ``thetas`` (B, 2) positive (h, w); ``s`` a float or a 0-d tensor
     (the noise standard deviation); ``x`` (n, 1); ``y`` (n,); ``mask`` (n,)
-    bool; float32, contiguous, one device, and ``mll_grad_supported(n)``.
+    bool; float32, contiguous, one device; any n ≥ 1 (``mll_grad_launches(n)``
+    launches: one block per row up to 128 rows, 64 × 64 tiles above).
     ``jitter`` is relative to h² (the live diagonal). The pivot of the
     Cholesky is clamped, so a row whose Gram is not positive definite comes
     back huge or non-finite and the caller filters it. A tensor ``s`` on the
@@ -414,6 +421,8 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     if x.ndim not in (2, 3) or x.shape[-1] != 1:
         raise ValueError(f"mll_grad_batched: x must be (n, 1) or (P, n, 1), got {tuple(x.shape)}")
     B, n = thetas.shape[0], x.shape[-2]
+    if n < 1:
+        raise ValueError("mll_grad_batched: needs at least one data row")
     data_shape = tuple(x.shape[:-1])  # (n,) or (P, n)
     P = x.shape[0] if x.ndim == 3 else 1
     if x.ndim == 3 and (P == 0 or B % P):
@@ -433,8 +442,6 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
         return mll_grad_batched_plain(thetas, s, x, y, mask, jitter)
     if x.device.type != "cuda":
         raise ValueError(f"mll_grad_batched: unsupported device {x.device}")
-    if not mll_grad_supported(n):
-        raise ValueError(f"mll_grad_batched: n={n} exceeds the shared-memory budget (n <= 167)")
     mll = torch.empty((B,), dtype=torch.float32, device=x.device)
     grad = torch.empty((B, 2), dtype=torch.float32, device=x.device)
     if B == 0:
@@ -442,13 +449,19 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     from tpubq_torch.ops import _build
 
     lib = _build.library()
+    scratch = sync = None
+    if n > _MLL_SMALL_N:
+        floats, ints = _mll_scratch_sizes(B, n)
+        scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
+        sync = torch.zeros((ints,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.tpubq_mll_grad(
             thetas.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
             float(jitter), B, n, B // P, n if x.ndim == 3 else 0, 1 if s.ndim else 0,
-            _MLL_THREADS, _mll_smem_bytes(n), mll.data_ptr(), grad.data_ptr(), _stream_ptr(x),
+            None if scratch is None else scratch.data_ptr(), None if sync is None else sync.data_ptr(),
+            mll.data_ptr(), grad.data_ptr(), _stream_ptr(x),
         )
-        mll_grad_batched.launches += 1
+        mll_grad_batched.launches += mll_grad_launches(n)
     _check(err, "mll_grad_batched")
     return mll, grad
 

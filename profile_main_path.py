@@ -35,7 +35,8 @@ per-operator tables go to ``--out``. Imports nothing from JAX.
 
 ``--kernels`` times kernels alone instead (``kernel_cases``): every kernel
 of PERF.md's table at the paths' shapes (``mll_grad`` at (10, 32), (10, 44),
-(640, 32), (10, 256) and (10, 1036)), with the library call beside it where
+(640, 32), (10, 256) and (10, 1036), and at (10, 96) and (10, 128) by both of
+its regimes: ``MLL_CROSSOVER``), with the library call beside it where
 there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
 and as device ms per call from ``torch.profiler``'s per-kernel durations.
 ``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
@@ -176,7 +177,8 @@ def kernel_cases(dev) -> list:
     """(kernel, shape, call, calls per timing) for every kernel row of
     PERF.md's table, on the inputs chip_smoke.py builds: the main path's
     shapes, the fleet's at B = 64, and the large-N path's at max_obs 1024;
-    ``mll_grad`` also at (640, 32), (10, 256) and (10, 1036)."""
+    ``mll_grad`` also at (640, 32), (10, 256) and (10, 1036), and by both
+    regimes at ``MLL_CROSSOVER``."""
     import torch
 
     from tpubq_torch.models import acquire, batched, fit as fitm
@@ -209,6 +211,12 @@ def kernel_cases(dev) -> list:
         cases.append(("mll_grad", f"{th_l.shape[0]}x{x_l.shape[0]}",
                       lambda th_l=th_l, s_l=s_l, x_l=x_l, y_l=y_l, m_l=m_l:
                       hk.mll_grad_batched(th_l, s_l, x_l, y_l, m_l, jitter=1e-7), 50 if m < 1024 else 10))
+    for m in MLL_CROSSOVER:  # the wrapper's regime at n = m, then the tiles on the same rows
+        th_c, s_c, x_c, y_c, m_c = cs.large_mll_case(dev, m)
+        call = (lambda th_c=th_c, s_c=s_c, x_c=x_c, y_c=y_c, m_c=m_c:
+                hk.mll_grad_batched(th_c, s_c, x_c, y_c, m_c, jitter=1e-7))
+        cases += [("mll_grad", f"{th_c.shape[0]}x{m}", call, 100),
+                  ("mll_grad (tiles)", f"{th_c.shape[0]}x{m}", lambda call=call: tiles_only(call), 100)]
     (params, w_l, *rest_l), (h2, w_tl, *rest_tl), _ = batched.fleet_scorer_inputs(fleet, fopts)
     thresh, lam = fopts.candidate_thresh, batched._LAM_F32
     cases += [("esm_fleet_l", f"B{cs.FLEET_B}_G{cs.G}_NP{fopts.max_nsc}",
@@ -234,6 +242,25 @@ def kernel_cases(dev) -> list:
                   ("solve_triangular (library)", f"{n}x{n}_x_{M}",
                    lambda R=R: torch.linalg.solve_triangular(L, R, upper=False), 20)]
     return cases
+
+
+#: ``mll_grad`` by both of its regimes at these n (--kernels): where the
+#: one-block kernel gives way to the tiles.
+MLL_CROSSOVER = (96, 128)
+
+
+def tiles_only(fn):
+    """``fn()`` with ``mll_grad``'s one-block regime switched off, so that
+    every n goes to the tiles; a version without tiles reports ValueError."""
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    if not hasattr(hk, "_MLL_SMALL_N"):
+        raise ValueError("this version has no tiled regime")
+    keep, hk._MLL_SMALL_N = hk._MLL_SMALL_N, 0
+    try:
+        return fn()
+    finally:
+        hk._MLL_SMALL_N = keep
 
 
 def kernel_times(dev, label: str) -> None:

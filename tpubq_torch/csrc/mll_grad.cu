@@ -35,7 +35,8 @@
 //     order.
 //   * n > 128 (four launches, no size limit): the rows' Grams are cut into
 //     64 x 64 tiles, NP = 64 ceil(n / 64), with L and Y kept in a device
-//     scratch of (B, NP, NP) floats each.
+//     scratch of (B, NP, NP) floats each (the caller allocates it; its
+//     layout is Scratch's, its size tpubq_mll_grad_scratch's).
 //       1. mll_factor_kernel: every tile of every row is a work item, taken
 //          from an atomic ticket (the scheme of chol_blocked.cu with a row
 //          axis): the factor's tiles, each formed from x and left-looking,
@@ -294,7 +295,8 @@ __device__ __forceinline__ void load_rows(const float* M, int N, int r0, int c0,
   }
 }
 
-// The scratch of one call (see tpubq_mll_grad), cut into its parts.
+// The scratch of one tiled call, cut into its parts. Its sizes, `floats`
+// and `ints`, are what tpubq_mll_grad_scratch gives the caller to allocate.
 struct Scratch {
   float* L;     // [B][NP][NP] the factor's tiles below the diagonal
   float* Y;     // [B][NP][NP] L^-1's tiles on and below the diagonal
@@ -303,19 +305,29 @@ struct Scratch {
   float* dg;    // [B][NP] diagonal of L
   float* al;    // [B][NP] alpha
   float* part;  // [B][T (T + 1) / 2][2] per-tile gradient sums
-  int* sync;    // 1 + B (T (T + 1) + T): the ticket, then per row the L and Y
-                // tile flags and the look-ahead flags
+  int* sync;    // the ticket, then per row the L and Y tile flags and the
+                // look-ahead flags
+  size_t floats, ints;
 
   __device__ __host__ Scratch(float* f, int* s, int B, int T) {
     const size_t NP = (size_t)T * kT;
-    L = f;
-    Y = L + B * NP * NP;
-    Ps = Y + B * NP * NP;
-    zp = Ps + (size_t)B * T * kT * kLD4;
-    dg = zp + (size_t)B * T * T * kT;
-    al = dg + B * NP;
-    part = al + B * NP;
+    const size_t U = (size_t)T * (T + 1) / 2;
+    // the next `count` floats (offsets: a null base only sizes the parts)
+    floats = 0;
+    auto take = [&](size_t count) {
+      float* at = f ? f + floats : nullptr;
+      floats += count;
+      return at;
+    };
+    L = take(B * NP * NP);
+    Y = take(B * NP * NP);
+    Ps = take((size_t)B * T * kT * kLD4);
+    zp = take((size_t)B * T * T * kT);
+    dg = take(B * NP);
+    al = take(B * NP);
+    part = take(2 * B * U);
     sync = s;
+    ints = 1 + B * (2 * U + T);
   }
 };
 
@@ -665,26 +677,40 @@ cudaError_t launch_small(const Args& args, int B, float* mll, float* grad, cudaS
 
 }  // namespace
 
-// n <= 128: one launch; scratch and sync are not read (may be null).
-// n > 128: four launches; T = ceil(n / 64), NP = 64 T, U = T (T + 1) / 2;
-// scratch holds B (2 NP^2 + T 64 68 + 64 T^2 + 2 NP + 2 U) floats (any
-// contents) and sync 1 + B (2 U + T) ints, zeroed, both allocated by the
-// caller. Shared data: rows_per_problem = B, data_stride = s_stride = 0.
-// Per-problem data: data_stride = n, s_stride = 1 (0 for one shared noise).
+// Floats and ints of the scratch of a tiled call on B rows of n points:
+// allocate that many, the ints zeroed.
+extern "C" void tpubq_mll_grad_scratch(int B, int n, long long* floats, long long* ints) {
+  const Scratch sc(nullptr, nullptr, B, (n + kT - 1) / kT);
+  *floats = static_cast<long long>(sc.floats);
+  *ints = static_cast<long long>(sc.ints);
+}
+
+// Without a scratch (null): the one-block regime, one launch, n <= 128.
+// With one: the tiles, four launches, any n; scratch holds `floats` floats
+// (any contents) and sync `ints` ints, zeroed, at least what
+// tpubq_mll_grad_scratch gives, both allocated by the caller. Shared data:
+// rows_per_problem = B, data_stride = s_stride = 0. Per-problem data:
+// data_stride = n, s_stride = 1 (0 for one shared noise).
 extern "C" int tpubq_mll_grad(const float* thetas, const float* s, const float* x, const float* y,
                               const unsigned char* mask, float jitter, int B, int n, int rows_per_problem,
-                              int data_stride, int s_stride, float* scratch, int* sync, float* mll, float* grad,
-                              void* stream_ptr) {
+                              int data_stride, int s_stride, float* scratch, long long floats, int* sync,
+                              long long ints, float* mll, float* grad, void* stream_ptr) {
   if (rows_per_problem < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Args args{thetas, s, x, y, mask, jitter, n, rows_per_problem, data_stride, s_stride};
-  if (n <= 16) return static_cast<int>(launch_small<16>(args, B, mll, grad, stream));
-  if (n <= 32) return static_cast<int>(launch_small<32>(args, B, mll, grad, stream));
-  if (n <= 64) return static_cast<int>(launch_small<64>(args, B, mll, grad, stream));
-  if (n <= 128) return static_cast<int>(launch_small<128>(args, B, mll, grad, stream));
+  if (scratch == nullptr) {
+    if (n <= 16) return static_cast<int>(launch_small<16>(args, B, mll, grad, stream));
+    if (n <= 32) return static_cast<int>(launch_small<32>(args, B, mll, grad, stream));
+    if (n <= 64) return static_cast<int>(launch_small<64>(args, B, mll, grad, stream));
+    if (n <= 128) return static_cast<int>(launch_small<128>(args, B, mll, grad, stream));
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 
   const int T = (n + kT - 1) / kT;
   const int U = T * (T + 1) / 2;
+  const Scratch need(nullptr, nullptr, B, T);
+  if (sync == nullptr || floats < static_cast<long long>(need.floats) || ints < static_cast<long long>(need.ints))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int factor_smem = kFactorSmem * static_cast<int>(sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(mll_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, factor_smem);
   if (e != cudaSuccess) return static_cast<int>(e);

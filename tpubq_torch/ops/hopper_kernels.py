@@ -134,16 +134,6 @@ def mll_grad_launches(n: int) -> int:
     return 1 if n <= _MLL_SMALL_N else 4
 
 
-def _mll_scratch_sizes(B: int, n: int) -> tuple:
-    """(floats, ints) of the scratch of one large-n ``mll_grad_batched``
-    call (``tpubq_mll_grad``): L and Y as (B, NP, NP), NP = 64⌈n/64⌉, the
-    look-ahead tiles, the shares of z = Yy, L's diagonal, alpha and two
-    partial sums per lower tile; the ticket and the tiles' flags."""
-    T = -(-n // 64)
-    NP, U = 64 * T, T * (T + 1) // 2
-    return B * (2 * NP * NP + T * 64 * 68 + 64 * T * T + 2 * NP + 2 * U), 1 + B * (2 * U + T)
-
-
 def on_card(t: torch.Tensor) -> bool:
     """Whether ``t`` lies on a CUDA device: the one device test of the routes."""
     return t.is_cuda
@@ -450,15 +440,17 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
 
     lib = _build.library()
     scratch = sync = None
-    if n > _MLL_SMALL_N:
-        floats, ints = _mll_scratch_sizes(B, n)
-        scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
-        sync = torch.zeros((ints,), dtype=torch.int32, device=x.device)
+    if n > _MLL_SMALL_N:  # the tiles: a scratch of the size the kernel's source gives
+        floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
+        lib.tpubq_mll_grad_scratch(B, n, ctypes.byref(floats), ctypes.byref(ints))
+        scratch = torch.empty((floats.value,), dtype=torch.float32, device=x.device)
+        sync = torch.zeros((ints.value,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.tpubq_mll_grad(
             thetas.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
             float(jitter), B, n, B // P, n if x.ndim == 3 else 0, 1 if s.ndim else 0,
-            None if scratch is None else scratch.data_ptr(), None if sync is None else sync.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(),
+            None if sync is None else sync.data_ptr(), 0 if sync is None else sync.numel(),
             mll.data_ptr(), grad.data_ptr(), _stream_ptr(x),
         )
         mll_grad_batched.launches += mll_grad_launches(n)

@@ -2251,7 +2251,10 @@ def main() -> int:
              **bound(mll_bytes(mB, mn), mll_ops(mB, mn)), library_ms=None,
              shape=f"({mB}, {mn})", dependent_steps=3 * mn, autograd_ms=mll_ms["autograd_ms"],
              ms_at_10x32=t["mll_grad"][f"{mB}x{NP2}"]["kernel_ms"],
+             bound_ms_at_10x32=bound(mll_bytes(mB, NP2), mll_ops(mB, NP2))["bound_ms"],
              fleet_launches=fp["launches"]["mll_grad"], fleet_max_abs_err=fk["mll_max_abs_err"],
+             fleet_bound_ms=bound(mll_bytes(FLEET_B * FIT_RESTARTS, FLEET_MAX_OBS),
+                                  mll_ops(FLEET_B * FIT_RESTARTS, FLEET_MAX_OBS))["bound_ms"],
              large_fit_launches=lf["launches"]["mll_grad"], large_max_abs_err=lm["max_abs_err"],
              **{f"at_{k[len('mll_grad_'):]}": {q: v[q] for q in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
                                                                   "launches_per_call")}

@@ -35,8 +35,9 @@ per-operator tables go to ``--out``. Imports nothing from JAX.
 
 ``--kernels`` times kernels alone instead (``kernel_cases``): every kernel
 of PERF.md's table at the paths' shapes (``mll_grad`` at (10, 32), (10, 44),
-(640, 32), (10, 256) and (10, 1036), and at (10, 96) and (10, 128) by both of
-its regimes: ``MLL_CROSSOVER``), with the library call beside it where
+(640, 32), (10, 256) and (10, 1036), and at (10, 64), (10, 96) and (10, 128)
+by the wrapper's regime and by the tiles: ``MLL_CROSSOVER``), with the library
+call beside it where
 there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
 and as device ms per call from ``torch.profiler``'s per-kernel durations.
 ``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
@@ -244,9 +245,11 @@ def kernel_cases(dev) -> list:
     return cases
 
 
-#: ``mll_grad`` by both of its regimes at these n (--kernels): where the
-#: one-block kernel gives way to the tiles.
-MLL_CROSSOVER = (96, 128)
+#: ``mll_grad`` by the wrapper's regime and by the tiles at these n
+#: (--kernels): where the one-block kernel gives way to the tiles. Run with
+#: ``--root`` on a version whose one-block regime reaches 128 rows to see it
+#: against the tiles at 96 and 128.
+MLL_CROSSOVER = (64, 96, 128)
 
 
 def tiles_only(fn):

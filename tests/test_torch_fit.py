@@ -86,7 +86,7 @@ def test_mll_grad_plain_matches_pallas_interpret(pad, jitter):
 @pytest.mark.parametrize("n,live", [(136, 100), (176, 120)])
 def test_mll_grad_plain_matches_pallas_interpret_beyond_the_old_cap(n, live):
     """The twin of both kernel regimes against the Pallas kernel in
-    interpret mode past 128 rows (the card's tiled regime) and past the old
+    interpret mode past 64 rows (the card's tiled regime) and past the old
     167-row cap, with pads: the tolerances of the test above (measured
     ≤ 9e-6 relative on the MLL, ≤ 5e-5 relative on the gradient)."""
     x, y, mask = _sine_data(n=live, pad=n - live)
@@ -135,8 +135,8 @@ def test_mll_grad_wrapper_rejects_bad_input():
         hk.mll_grad_batched(_t(THETAS, f32)[:, :1], *good[1:])
     with pytest.raises(ValueError, match="mask"):
         hk.mll_grad_batched(*good[:4], torch.as_tensor(mask).float())
-    # no size cap: one block per row up to 128 rows, four launches of tiles above
-    assert [hk.mll_grad_launches(n) for n in (1, 44, 128, 129, 168, 1036)] == [1, 1, 1, 4, 4, 4]
+    # no size cap: one block per row up to 64 rows, four launches of tiles above
+    assert [hk.mll_grad_launches(n) for n in (1, 44, 64, 65, 128, 168, 1036)] == [1, 1, 1, 4, 4, 4, 4]
     empty = (_t(np.zeros((0, 1)), f32), _t(np.zeros(0), f32), torch.zeros(0, dtype=torch.bool))
     with pytest.raises(ValueError, match="at least one data row"):
         hk.mll_grad_batched(*good[:2], *empty)

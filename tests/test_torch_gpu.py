@@ -245,8 +245,8 @@ def _live_condition(thetas, x, mask, s, jitter):
 @pytest.mark.parametrize("n", [5, 32, 44, 64, 65, 128, 129, 167, 300, 1036])
 def test_mll_grad_kernel_matches_plain(cuda, n):
     """B = 10 rows at both regimes and their edges: one block per row up to
-    128 rows (NP = 16, 32, 64, 128 with identity pads), 64 × 64 tiles above
-    (129: one row in the last tile). Up to 167 rows well-conditioned rows
+    64 rows (NP = 16, 32, 64 with identity pads), 64 × 64 tiles above (65
+    and 129: one row in the last tile). Up to 167 rows well-conditioned rows
     (noise 0.1), held at 1e-4 relative on the MLL and 1e-3 of the row's
     largest gradient entry; in the tiles |MLL| is floored at the live count
     (the size of the terms it sums: a row can sit near MLL = 0). At 300 and
@@ -266,13 +266,13 @@ def test_mll_grad_kernel_matches_plain(cuda, n):
     mll2, grad2 = hk.mll_grad_batched(thetas, torch.tensor(s, device=cuda), x, y, mask, jitter=1e-7)
     torch.cuda.synchronize()
     assert hk.mll_grad_batched.launches == before + 2 * hk.mll_grad_launches(n)
-    assert hk.mll_grad_launches(n) == (1 if n <= 128 else 4)
+    assert hk.mll_grad_launches(n) == (1 if n <= 64 else 4)
     assert torch.equal(mll, mll2) and torch.equal(grad, grad2)  # fixed summation order
     ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, 1e-7)
     assert bool(torch.isfinite(mll).all() and torch.isfinite(grad).all())
     norm = lambda g, ref: ((g - ref).abs().amax(-1) / ref.abs().amax(-1)).cpu()  # noqa: E731
     if n <= 167:
-        floor = float(mask.sum()) if n > 128 else 0.0
+        floor = float(mask.sum()) if n > 64 else 0.0
         e_mll = ((mll - ref_mll).abs() / torch.clamp(ref_mll.abs(), min=floor)).cpu()
         e_grad = norm(grad, ref_grad)
         assert bool((e_mll <= 1e-4).all()), e_mll
@@ -290,7 +290,7 @@ def test_mll_grad_kernel_rejects_what_it_does_not_take(cuda):
     """168 rows, past the old shared-memory cap, go to the tiles and match
     the twin; a float64 row or data on another device raise; the kernel's
     entry refuses a scratch smaller than its source's layout, and more than
-    128 rows without one."""
+    64 rows without one."""
     import ctypes
 
     from tpubq_torch.ops import _build

@@ -74,13 +74,12 @@ static __device__ __noinline__ bool chol16_warp(float* a, int lda, float* Y, int
   return clamped;
 }
 
-// out(r, c) = sum_m A(r, m) B(c, m) over m < M (default H) for all H x H
-// outputs, with A(r, m) = pa[r ra + m ma], B(c, m) = pb[c rb + m mb], summed
-// in order of m. At H = 32 and 64 each thread keeps an R x R block of outputs,
-// R = H / 16 (rows R (t / 16) + u, columns R (t % 16) + w), so each loaded
-// value feeds R FMAs; at H = 16 one output. f(r, c, value) stores or combines
-// each output.
-template <int H, int M = H, class F>
+// out(r, c) = sum_m A(r, m) B(c, m) over m < H for all H x H outputs, with
+// A(r, m) = pa[r ra + m ma], B(c, m) = pb[c rb + m mb], summed in order of m.
+// At H = 32 and 64 each thread keeps an R x R block of outputs, R = H / 16
+// (rows R (t / 16) + u, columns R (t % 16) + w), so each loaded value feeds R
+// FMAs; at H = 16 one output. f(r, c, value) stores or combines each output.
+template <int H, class F>
 __device__ __forceinline__ void small_product(const float* pa, int ra, int ma, const float* pb, int rb, int mb,
                                               int tid, F f) {
   if constexpr (H == 16) {
@@ -89,7 +88,7 @@ __device__ __forceinline__ void small_product(const float* pa, int ra, int ma, c
     const int c = tid % H;
     float acc = 0.f;
 #pragma unroll
-    for (int m = 0; m < M; ++m) acc = fmaf(pa[r * ra + m * ma], pb[c * rb + m * mb], acc);
+    for (int m = 0; m < H; ++m) acc = fmaf(pa[r * ra + m * ma], pb[c * rb + m * mb], acc);
     f(r, c, acc);
   } else {
     static_assert(H == 32 || H == 64, "H is 16, 32 or 64");
@@ -98,7 +97,7 @@ __device__ __forceinline__ void small_product(const float* pa, int ra, int ma, c
     const int c0 = R * (tid % 16);
     float acc[R][R] = {};
 #pragma unroll 8
-    for (int m = 0; m < M; ++m) {
+    for (int m = 0; m < H; ++m) {
       float av[R], bv[R];
 #pragma unroll
       for (int u = 0; u < R; ++u) {
@@ -122,7 +121,7 @@ __device__ __forceinline__ void small_product(const float* pa, int ra, int ma, c
 // diagonal), as a 2 x 2 block of H x H halves: L11 and Y11 by the level
 // below (chol16_warp at H = 16); L21 = A21 Y11^T; L22 and Y22 by the level
 // below on A22 - L21 L21^T; Y21 = -(Y22 L21) Y11, skipped if !want_inverse.
-// H = 16, 32 or 64 (a 32, 64 or 128 block). The products run over all 256
+// H = 16 or 32 (a 32 or 64 block). The products run over all 256
 // threads (small_product), each entry an H-term sum in a fixed order (the
 // terms outside the triangles are exact zeros). tmp holds H x H floats,
 // 16-byte aligned, at least 256. Returns (on

@@ -21,11 +21,12 @@
 //
 // What bounds it: the dependent steps of the factor and the inverse, not
 // bytes (a few hundred per row read, three floats written). The operations,
-// ~4/3 n^3 per row, bound it only at large n and B. Two regimes, chosen from
-// n alone:
+// ~n^3 per row (factor, inverse, the lower half of K^-1), bound it only at
+// large n and B. Two regimes; the caller picks one from n alone, and gives
+// the tiles a scratch (tpubq_mll_grad):
 //
-//   * n <= 128 (mll_small_kernel, one launch): one block per row, the row's
-//     Gram padded with identity rows to NP = 16, 32, 64 or 128 (exact: a pad
+//   * n <= 64 (mll_small_kernel, one launch): one block per row, the row's
+//     Gram padded with identity rows to NP = 16, 32 or 64 (exact: a pad
 //     has L = Y = 1, alpha = 0 and dK = 0, and is masked out of the log-det)
 //     and built in shared memory from x. It is factored and inverted in one
 //     pass by 2 x 2 blocking down to 16 x 16 warp leaves (chol_tile.cuh,
@@ -33,7 +34,7 @@
 //     product over the block, and dK/dh and dK/dw are formed from x in the
 //     epilogue over the lower triangle, the five sums reduced in a fixed
 //     order.
-//   * n > 128 (four launches, no size limit): the rows' Grams are cut into
+//   * n > 64 (four launches, no size limit): the rows' Grams are cut into
 //     64 x 64 tiles, NP = 64 ceil(n / 64), with L and Y kept in a device
 //     scratch of (B, NP, NP) floats each (the caller allocates it; its
 //     layout is Scratch's, its size tpubq_mll_grad_scratch's).
@@ -162,7 +163,7 @@ __device__ __forceinline__ void write_row(float* mll, float* grad, int b, const 
 }
 
 // ---------------------------------------------------------------------------
-// n <= 128: one block per row
+// n <= 64: one block per row
 // ---------------------------------------------------------------------------
 
 // Shared memory of mll_small_kernel<NP>, in floats.
@@ -218,18 +219,7 @@ __global__ void __launch_bounds__(kThreads, 3) mll_small_kernel(Args args, float
 
   // K^-1(r, c) = sum_m Y(m, r) Y(m, c) over the factor; (r, c) and (c, r)
   // run the same sum, so K^-1 is symmetric to the bit
-  if constexpr (NP <= 64) {
-    small_product<NP>(Y, 1, LD, Y, 1, LD, tid, [&](int r, int c, float v) { a[r * LD + c] = v; });
-  } else {
-#pragma unroll
-    for (int I = 0; I < 2; ++I)
-#pragma unroll
-      for (int J = 0; J <= I; ++J)
-        small_product<64, NP>(Y + 64 * I, 1, LD, Y + 64 * J, 1, LD, tid, [&](int r, int c, float v) {
-          a[(64 * I + r) * LD + 64 * J + c] = v;
-          if (I != J) a[(64 * J + c) * LD + 64 * I + r] = v;
-        });
-  }
+  small_product<NP>(Y, 1, LD, Y, 1, LD, tid, [&](int r, int c, float v) { a[r * LD + c] = v; });
   __syncthreads();
 
   // alpha = K^-1 y, read down the columns (K^-1 is symmetric): conflict-free.
@@ -276,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 3) mll_small_kernel(Args args, float
 }
 
 // ---------------------------------------------------------------------------
-// n > 128: tiles through a device-memory scratch
+// n > 64: tiles through a device-memory scratch
 // ---------------------------------------------------------------------------
 
 // shared memory of mll_factor_kernel: two k-major operands, or the diagonal
@@ -685,7 +675,7 @@ extern "C" void tpubq_mll_grad_scratch(int B, int n, long long* floats, long lon
   *ints = static_cast<long long>(sc.ints);
 }
 
-// Without a scratch (null): the one-block regime, one launch, n <= 128.
+// Without a scratch (null): the one-block regime, one launch, n <= 64.
 // With one: the tiles, four launches, any n; scratch holds `floats` floats
 // (any contents) and sync `ints` ints, zeroed, at least what
 // tpubq_mll_grad_scratch gives, both allocated by the caller. Shared data:
@@ -702,7 +692,6 @@ extern "C" int tpubq_mll_grad(const float* thetas, const float* s, const float* 
     if (n <= 16) return static_cast<int>(launch_small<16>(args, B, mll, grad, stream));
     if (n <= 32) return static_cast<int>(launch_small<32>(args, B, mll, grad, stream));
     if (n <= 64) return static_cast<int>(launch_small<64>(args, B, mll, grad, stream));
-    if (n <= 128) return static_cast<int>(launch_small<128>(args, B, mll, grad, stream));
     return static_cast<int>(cudaErrorInvalidValue);
   }
 

@@ -10,7 +10,7 @@ Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
 * ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
   masked log marginal likelihood and its (h, w) gradient for a batch of
   hyperparameter rows, behind the fused multi-restart fit, at any n (one
-  block per row up to 128 rows, 64 × 64 tiles through a device scratch
+  block per row up to 64 rows, 64 × 64 tiles through a device scratch
   above); the rows may belong to several problems, each with its own data.
 * ``esm_fleet_l`` (``csrc/esm_fleet_l.cu``) ← ``esm_fleet_l`` and
   ``esm_fleet_tl`` (``csrc/esm_fleet_tl.cu``) ← ``esm_fleet_tl``: the two
@@ -32,7 +32,7 @@ tensor it launches the kernel or raises. Each wrapper counts its CUDA kernel
 launches in a plain integer attribute (``esm_fused.launches``, …,
 ``tri_solve_blocked.launches``), incremented where the kernel is launched and
 nowhere else; ``esm_fused``, ``cholesky_batched`` and ``mll_grad_batched``
-above 128 rows make several launches per call (``esm_fused_launches``,
+above 64 rows make several launches per call (``esm_fused_launches``,
 ``cholesky_batched_launches``, ``mll_grad_launches``;
 ``cholesky_blocked_launches`` and ``tri_solve_blocked_launches`` are one).
 Callers choose a kernel route from shapes, dtype and device before any
@@ -86,7 +86,9 @@ __all__ = [
 #: Shared memory one block may use on H100 (227 KB).
 SMEM_LIMIT = 232448
 _CHOL_THREADS = 256
-_MLL_SMALL_N = 128  # mll_grad: one block per row up to this n, tiles above
+# mll_grad: one block per row up to this n, tiles above. A block of NP 128
+# lost to the tiles at n = 96 and 128 (PERF.md §6, PR 7), so none is built.
+_MLL_SMALL_N = 64
 _LOG2PI = math.log(2.0 * math.pi)
 
 
@@ -128,7 +130,7 @@ def chol_batch_supported(n: int) -> bool:
 
 def mll_grad_launches(n: int) -> int:
     """CUDA launches of one ``mll_grad_batched`` call with n data rows: 1 up
-    to 128 rows (one block per θ row, the whole tile in shared memory), 4
+    to 64 rows (one block per θ row, the whole tile in shared memory), 4
     above (the tiles through a device-memory scratch: factor and inverse,
     alpha, K⁻¹ with the gradient's partial sums, the finish)."""
     return 1 if n <= _MLL_SMALL_N else 4
@@ -395,7 +397,7 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     Shapes: ``thetas`` (B, 2) positive (h, w); ``s`` a float or a 0-d tensor
     (the noise standard deviation); ``x`` (n, 1); ``y`` (n,); ``mask`` (n,)
     bool; float32, contiguous, one device; any n ≥ 1 (``mll_grad_launches(n)``
-    launches: one block per row up to 128 rows, 64 × 64 tiles above).
+    launches: one block per row up to 64 rows, 64 × 64 tiles above).
     ``jitter`` is relative to h² (the live diagonal). The pivot of the
     Cholesky is clamped, so a row whose Gram is not positive definite comes
     back huge or non-finite and the caller filters it. A tensor ``s`` on the

@@ -15,7 +15,8 @@ before the final line):
               seconds and ptxas' report.
 2. kernels  — each kernel against its plain PyTorch twin on the card, at the
               main paths' shapes and the ones around them, with stated
-              tolerances; the fleet scorer and the plain batched float32
+              tolerances (the fleet kernels up to the route's 220 rows and
+              on a ragged grid); the fleet scorer and the plain batched float32
               scorer against float64 at 28, 60 and 126 rows per problem; the
               large-N kernels (gaussian_gram, cholesky_blocked,
               tri_solve_blocked, cholesky_batched) at n = 44, 128, 300 and
@@ -149,6 +150,7 @@ FLEET_SINGLE_Z_RTOL = 1e-5
 # threshold (float64 on the same inputs).
 FLEET_NORM_TOL = 1e-4
 MAX_FLEET_FLIPS = 6
+FLEET_RAGGED = 37  # points past G in the ragged-grid case: the kernels' last block of 128 is cut
 
 
 def emit(phase: str, **kv) -> None:
@@ -870,9 +872,10 @@ def fleet_state_2d(dev, B=4, dtype="float32"):
 def check_fleet_kernels(dev) -> dict:
     """The two fleet kernels against their plain versions at B = 64, G = 10⁴
     for (NP, NP2) = (28, 16), (44, 32) — the fleet path's — and (60, 48); at
-    B = 6 with (126, 112) rows; at B = 4 in d = 2 with (24, 16); with
-    per-problem hypers and measures; and with one problem whose factor is
-    non-finite. Then ``mll_grad_batched`` with per-problem data (64 × 10 rows)
+    B = 6 with (126, 112) rows; at B = 8 with (220, 208), the route's edge; at
+    B = 4 in d = 2 with (24, 16); with per-problem hypers and measures; with
+    one problem whose factor is non-finite; and at (44, 32) on a grid of
+    G + FLEET_RAGGED points, whose last block of 128 is ragged. Then ``mll_grad_batched`` with per-problem data (64 × 10 rows)
     against its twin by the rule of ``check_mll``."""
     import torch
 
@@ -895,6 +898,12 @@ def check_fleet_kernels(dev) -> dict:
     states, opts, half = dense_fleet_state(dev, 6, 112)
     wide = torch.linspace(-half - 1.0, half + 1.0, G, device=dev)[:, None]
     cases.append(fleet_vs_plain(states, opts, wide, geometry="near-capacity rows"))
+    states, opts, half = dense_fleet_state(dev, 8, 208, n_candidate=12)
+    wide = torch.linspace(-half - 1.0, half + 1.0, G, device=dev)[:, None]
+    cases.append(fleet_vs_plain(states, opts, wide, geometry="the route's edge (220 rows)"))
+    states, opts = kept[(44, 32)]
+    ragged = torch.linspace(-4.0, 4.0, G + FLEET_RAGGED, device=dev)[:, None]
+    cases.append(fleet_vs_plain(states, opts, ragged, geometry=f"G = {G} + {FLEET_RAGGED}: a ragged last block"))
     states, opts = fleet_state_2d(dev)
     g1 = torch.linspace(-3.0, 3.0, 100, device=dev)
     grid2 = torch.stack(torch.meshgrid(g1, g1, indexing="ij"), -1).reshape(-1, 2).contiguous()
@@ -922,8 +931,9 @@ def check_fleet_kernels(dev) -> dict:
         check(not c["failures"], f"fleet kernels ({c['geometry']}, NP={c['NP']}): {c['failures']}")
     for c in mll_cases:
         check(not c["failures"], f"mll_grad with per-problem data ({c['gp']}): {c['failures']}")
-    check({(c["NP"], c["NP2"]) for c in cases} >= {(28, 16), (44, 32), (60, 48), (126, 112), (24, 16)},
+    check({(c["NP"], c["NP2"]) for c in cases} >= {(28, 16), (44, 32), (60, 48), (126, 112), (24, 16), (220, 208)},
           "fleet kernels checked at the shapes named")
+    check(any(c["G"] % 128 for c in cases), "fleet kernels checked on a grid that ends inside a block")
     worst = lambda names: max(c["max_abs_err"][n] for c in cases for n in names)  # noqa: E731
     return {"l_max_abs_err": worst(("A", "B")), "tl_max_abs_err": worst(("m_a", "c_a")),
             "mll_max_abs_err": max(c["max_abs_err"] for c in mll_cases), "states": kept}

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 profile_main_path.py [--out profile_main_path.txt] [--root DIR] [--kernels]
+    python3 profile_main_path.py [--out profile_main_path.txt] [--root DIR] [--kernels] [--only NAME]
 
 Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 10,000-point grid, three active steps taken first):
@@ -36,13 +36,16 @@ per-operator tables go to ``--out``. Imports nothing from JAX.
 ``--kernels`` times kernels alone instead (``kernel_cases``): every kernel
 of PERF.md's table at the paths' shapes (``mll_grad`` at (10, 32), (10, 44),
 (640, 32), (10, 256) and (10, 1036), and at (10, 64), (10, 96) and (10, 128)
-by the wrapper's regime and by the tiles: ``MLL_CROSSOVER``), with the library
-call beside it where
-there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
+by the wrapper's regime and by the tiles: ``MLL_CROSSOVER``; the fleet
+kernels at the three B = 64 fleets of ``FLEET_SHAPES``), with the library
+call beside it where there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
 and as device ms per call from ``torch.profiler``'s per-kernel durations.
 ``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
 say), so that two versions of the kernels are timed by the same code in one
-call: parent, change, change, parent.
+call: parent, change, change, parent. ``--only NAME`` keeps the pieces (with
+``--kernels``, the kernels) whose name starts with NAME: ``--only fleet``
+profiles the fleet's fit and step, ``--kernels --only esm_fleet`` times the
+two fleet kernels.
 """
 
 from __future__ import annotations
@@ -97,6 +100,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--root", default=None, help="import tpubq_torch from this directory")
     ap.add_argument("--kernels", action="store_true", help="time the kernels alone")
+    ap.add_argument("--only", default=None,
+                    help="the pieces (with --kernels: the kernels) whose name starts with this")
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -109,10 +114,33 @@ def main() -> int:
     print(json.dumps({"card": label, "torch": torch.__version__,
                       "tpubq_torch": os.path.relpath(os.path.dirname(tpubq_torch.__file__))}), flush=True)
     if args.kernels:
-        kernel_times(dev, label)
+        kernel_times(dev, label, args.only)
         return 0
 
     grid = np.linspace(-4.0, 4.0, cs.G)
+    want = lambda *names: not args.only or any(n.startswith(args.only) for n in names)  # noqa: E731
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as out:
+        out.write(f"{label}\n")
+        if want("fit_hypers", "step", "marginalize", "sampler"):
+            profile_single(dev, grid, args.iters, out, want)
+        if want("fleet_fit", "fleet_step"):
+            profile_fleet(dev, grid, args.iters, out)
+        if want("large_refit_step", "large_fast_step", "large_marginalize"):
+            profile_large_n(dev, args.iters, out)
+        if want("large_fit_hypers"):
+            profile_large_fit(dev, out)
+    return 0
+
+
+def profile_single(dev, grid, iters: int, out, want) -> None:
+    """The single problem's pieces on the testbed: fit_hypers from the
+    initial state, then after three active steps a step, marginalize and the
+    sampler (those ``want`` keeps)."""
+    import torch
+
+    from tpubq_torch.models import marginalize as margm
+
     bq = cs.make_bq(cs.testbed_x(False), dev, "float32", s=cs.S_MAIN)
     st0 = bq.state
 
@@ -128,26 +156,21 @@ def main() -> int:
     st = bq.state
     thetas = bq.sample_hypers(n=100, seed=7)
 
-    from tpubq_torch.models import marginalize as margm
-
     def step():
         bq._state = st
         xn = bq.choose_next(grid)
         bq.add_observation(xn, float(cs.f_l(xn)))
 
     th = torch.as_tensor(thetas, dtype=torch.float32, device=dev)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as out:
-        out.write(f"{label}\n")
+    if want("fit_hypers"):
         profile_piece("fit_hypers", fit, 3, out)
-        profile_piece("step", step, args.iters, out)
-        profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), args.iters, out)
+    if want("step"):
+        profile_piece("step", step, iters, out)
+    if want("marginalize"):
+        profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), iters, out)
+    if want("sampler"):
         profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out)
-        profile_fleet(dev, grid, args.iters, out)
-        profile_large_n(dev, args.iters, out)
-        profile_large_fit(dev, out)
     bq._state = st
-    return 0
 
 
 def device_ms(fn, iters: int) -> tuple:
@@ -218,12 +241,14 @@ def kernel_cases(dev) -> list:
                 hk.mll_grad_batched(th_c, s_c, x_c, y_c, m_c, jitter=1e-7))
         cases += [("mll_grad", f"{th_c.shape[0]}x{m}", call, 100),
                   ("mll_grad (tiles)", f"{th_c.shape[0]}x{m}", lambda call=call: tiles_only(call), 100)]
-    (params, w_l, *rest_l), (h2, w_tl, *rest_tl), _ = batched.fleet_scorer_inputs(fleet, fopts)
-    thresh, lam = fopts.candidate_thresh, batched._LAM_F32
-    cases += [("esm_fleet_l", f"B{cs.FLEET_B}_G{cs.G}_NP{fopts.max_nsc}",
-               lambda: hk.esm_fleet_l(params, w_l, grid, *rest_l, thresh, lam), 50),
-              ("esm_fleet_tl", f"B{cs.FLEET_B}_G{cs.G}_NP2={fopts.max_obs}",
-               lambda: hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl), 50)]
+    for n_obs, max_obs, s in FLEET_SHAPES:  # chip_smoke.py's three B = 64 fleets; (44, 32) is the path's
+        st_f, o_f = (fleet, fopts) if max_obs == cs.FLEET_MAX_OBS else cs.fleet_state(dev, cs.FLEET_B, n_obs, max_obs, s=s)
+        (params, w_l, *rest_l), (h2, w_tl, *rest_tl), _ = batched.fleet_scorer_inputs(st_f, o_f)
+        thresh, lam = o_f.candidate_thresh, batched._LAM_F32
+        cases += [("esm_fleet_l", f"B{cs.FLEET_B}_G{cs.G}_NP{o_f.max_nsc}",
+                   lambda a=(params, w_l, grid, *rest_l, thresh, lam): hk.esm_fleet_l(*a), 50),
+                  ("esm_fleet_tl", f"B{cs.FLEET_B}_G{cs.G}_NP2={o_f.max_obs}",
+                   lambda a=(h2, w_tl, grid, *rest_tl): hk.esm_fleet_tl(*a), 50)]
     n = cs.LARGE_TIMING_N[0]
     xg = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=dev)
     thg = torch.tensor(cs.PARAMS_L, device=dev)
@@ -244,6 +269,10 @@ def kernel_cases(dev) -> list:
                    lambda R=R: torch.linalg.solve_triangular(L, R, upper=False), 20)]
     return cases
 
+
+#: The fleets of chip_smoke.py's ``check_fleet_kernels`` at B = 64 (n_obs,
+#: max_obs, s): (NP, NP2) = (28, 16), (44, 32) — the fleet path's — and (60, 48).
+FLEET_SHAPES = ((10, 16, 0.0), (cs.FLEET_N_OBS, cs.FLEET_MAX_OBS, cs.S_MAIN), (8, 48, 0.0))
 
 #: ``mll_grad`` by the wrapper's regime and by the tiles at these n
 #: (--kernels): where the one-block kernel gives way to the tiles. Run with
@@ -266,13 +295,16 @@ def tiles_only(fn):
         hk._MLL_SMALL_N = keep
 
 
-def kernel_times(dev, label: str) -> None:
-    """One JSON line per kernel and shape (``kernel_cases``): CUDA-event ms
-    per call over a loop of wrapper calls, in two turns (what chip_smoke.py
-    reports, the host's pace where a kernel is shorter than its wrapper), and
-    the device ms per call under ``torch.profiler`` (``device_ms``). A shape
-    this version of the package does not take is reported as such."""
+def kernel_times(dev, label: str, only: str | None = None) -> None:
+    """One JSON line per kernel and shape (``kernel_cases``; with ``only``,
+    the kernels whose name starts with it): CUDA-event ms per call over a loop
+    of wrapper calls, in two turns (what chip_smoke.py reports, the host's
+    pace where a kernel is shorter than its wrapper), and the device ms per
+    call under ``torch.profiler`` (``device_ms``). A shape this version of the
+    package does not take is reported as such."""
     for kernel, shape, fn, it in kernel_cases(dev):
+        if only and not kernel.startswith(only):
+            continue
         try:
             turns = [cs.cuda_ms(fn, it) for _ in range(2)]
         except ValueError as e:

@@ -255,6 +255,26 @@ def test_fleet_scorer_2d_matches_jax_vmapped_scorer():
         np.testing.assert_allclose(det.numpy(), torch.linalg.det(M).numpy(), rtol=1e-10)
 
 
+def test_fleet_launch_config_covers_the_route():
+    """The tiled fleet kernels' launch (``_fleet_launch_config``, the layout of
+    csrc/esm_fleet_common.cuh) at every size the route takes, 1 … 220 rows at
+    d = 1 … 3: one thread per 8 points × 4 columns of a column tile 16 … 64
+    wide that covers NP in ⌈NP/64⌉ tiles, within 227 KB of shared memory. The
+    route answers as it did before the redesign: 220 rows, d ≤ 3."""
+    for d in (1, 2, 3):
+        for NP in range(1, 221):
+            threads, smem = hk._fleet_launch_config(NP, d)
+            ct, tiles = hk._fleet_col_width(NP), (NP + 63) // 64
+            assert ct % 16 == 0 and ct <= 64 and ct - 16 < -(-NP // tiles) <= ct  # NP split evenly, up to 16
+            assert threads == (128 // hk._FLEET_QP) * (ct // 4) and 0 < smem <= hk.SMEM_LIMIT
+    assert (hk._fleet_col_width(44), hk._fleet_col_width(32), hk._fleet_col_width(220)) == (48, 32, 64)
+    assert hk.esm_fleet_l_supported(220, 1) and hk.esm_fleet_tl_supported(220, 3)
+    assert not hk.esm_fleet_l_supported(224, 1) and not hk.esm_fleet_tl_supported(224, 1)
+    assert not hk.esm_fleet_l_supported(221, 2) and not hk.esm_fleet_l_supported(0, 1)
+    assert not hk.esm_fleet_l_supported(16, 4) and not hk.esm_fleet_tl_supported(16, 4)
+    assert hk._fleet_launch_config(224, 1) is None and hk._fleet_launch_config(16, 4) is None
+
+
 def test_fleet_scorer_dispatch_and_rejections():
     """What takes the kernels and what the plain batched scorer: float64 and
     per-problem grids go to the plain path; an explicit fleet-scorer call on

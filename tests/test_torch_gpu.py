@@ -15,10 +15,12 @@ largest score (f32 sums in another order; expf against torch.exp), the fused
 MLL-and-gradient at 1e-4 relative on the MLL and 1e-3 of the row's largest
 gradient entry, on well-conditioned rows (noise 0.1: condition ≤ ~1e4), and
 on the large-N recipe's Grams (s = 0.05) at max(that, 4·eps32·κ) per row; the
-two fleet scorer kernels, on fleets with noise 0.05, at 1e-4 of each problem's
-largest value for m_a, c_a, A and the combined score and 1e-3 for B (a
-quotient by the Schur complement), off the few points where the degenerate
-masks differ; the large-max_obs kernels on Grams of the large-N recipe at
+two fleet scorer kernels, on fleets with noise 0.05 and on float64 GP
+posteriors with noise 0.1 at the tiles' edges (there the plain float32
+version is within 1.6e-5 of float64), at 1e-4 of each problem's largest
+value for m_a, c_a, A and the combined score and 1e-3 for B (a quotient by
+the Schur complement), off the few points where the degenerate masks differ,
+bit-identical from call to call; the large-max_obs kernels on Grams of the large-N recipe at
 s = 0.05 (κ up to ~1e5): the Gram at 1e-6 of h², the two Choleskys at a
 backward error of n·eps32 and within max(1e-4, 2 × the library's distance)
 of the plain (unblocked / panelled) factor, the blocked solve within
@@ -437,6 +439,117 @@ def test_fleet_kernels_raise_on_what_they_do_not_take(cuda):
         hk.esm_fleet_tl(h2.double(), w_tl, grid, *rest_tl)
     with pytest.raises(ValueError, match="is on"):
         hk.esm_fleet_l(params.cpu(), w_l, grid, *rest_l, 0.2, 1e-6)
+
+
+#: Distance between neighbouring rows per axis in ``_gp_fleet_inputs``.
+SPACING = 0.45
+
+
+def _gp_fleet_inputs(device, B, NP, NP2, d, seed=0, s=0.1):
+    """Both fleet kernels' inputs for B problems with NP (linear GP) and NP2
+    (log-GP) rows, from float64 gaussian-GP posteriors cast to float32: the
+    live rows first, then a quarter of padding rows (mask 0, identity rows of
+    K⁻¹, α = 0) as a fleet state pads, at a density that does not grow with
+    the rows (SPACING apart per axis), with a likelihood N(x; 0, I) and its
+    log as data and the measure N(0, I). → (args_l, args_tl, zTa, half-width
+    of the domain)."""
+    rng = np.random.RandomState(seed)
+    half = 0.5 * SPACING * max(NP, NP2) ** (1.0 / d)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)  # noqa: E731
+
+    def posterior(n, h, w, y):
+        x = rng.uniform(-half, half, (B, n, d))
+        m = np.zeros((B, n))
+        m[:, :max(1, n - n // 4)] = 1.0
+        live = (m[:, :, None] * m[:, None, :]) > 0
+        K = h * h * np.exp(-0.5 * (((x[:, :, None] - x[:, None]) / w) ** 2).sum(-1)) + s * s * np.eye(n)
+        Kinv = np.where(live, np.linalg.inv(np.where(live, K, np.eye(n))), np.eye(n))
+        return x, m, Kinv, (Kinv @ (y(x) * m)[..., None])[..., 0]
+
+    h_l, w_l, h_tl, w_tl = 0.3, 0.4, 0.7, 0.8
+    x, m, Kinv, alpha = posterior(NP, h_l, w_l, lambda x: np.exp(-0.5 * (x * x).sum(-1)))
+    xt, mt, Kt, at = posterior(NP2, h_tl, w_tl, lambda x: -0.5 * (x * x).sum(-1))
+    A = w_l * w_l + 1.0  # W_l + Σ per axis
+    zc = h_l * h_l * w_l**d / np.sqrt(A**d)
+    z = zc * np.exp(-0.5 / A * (x * x).sum(-1)) * m
+    zTa = (z * alpha).sum(1)
+    params = np.zeros((B, hk.FLEET_PARAMS))
+    params[:, 0], params[:, 1], params[:, 2], params[:, 15] = h_l * h_l + s * s, zTa, zc, h_l * h_l
+    for i in range(d):
+        params[:, 6 + i * d + i] = 0.5 / A
+    args_l = (f32(params), f32(np.full((B, d), 0.5 / w_l**2)), f32(x), f32(m), f32(Kinv),
+              f32((Kinv @ z[..., None])[..., 0]), f32(alpha))
+    args_tl = (f32(np.full(B, h_tl * h_tl)), f32(np.full((B, d), 0.5 / w_tl**2)), f32(xt), f32(mt), f32(Kt), f32(at))
+    return args_l, args_tl, f32(zTa), half
+
+
+def _fleet_kernels_vs_plain(args_l, args_tl, zTa, grid, thresh):
+    """Launch both fleet kernels once and hold them to their plain versions by
+    the rule of ``test_fleet_kernels_match_plain`` → the kernels' outputs."""
+    (params, w_l, *rest_l), (h2, w_tl, *rest_tl) = args_l, args_tl
+    lam = batched._LAM_F32
+    before = hk.esm_fleet_l.launches, hk.esm_fleet_tl.launches
+    A, Bc, dg = hk.esm_fleet_l(params, w_l, grid, *rest_l, thresh, lam)
+    m_a, c_a = hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl)
+    torch.cuda.synchronize()
+    assert (hk.esm_fleet_l.launches, hk.esm_fleet_tl.launches) == (before[0] + 1, before[1] + 1)
+    A0, B0, dg0 = hk.esm_fleet_l_plain(params, w_l, grid, *rest_l, thresh, lam)
+    m0, c0 = hk.esm_fleet_tl_plain(h2, w_tl, grid, *rest_tl)
+    assert A.shape == (params.shape[0], grid.shape[0]) and bool(torch.isfinite(A).all())
+    same = dg == dg0
+    assert int((~same).sum()) <= 6
+    assert _normwise(m_a, m0) <= 1e-4 and _normwise(c_a, c0) <= 1e-4
+    assert _normwise(A, A0, same) <= 1e-4 and _normwise(Bc, B0, same) <= 1e-3
+    gamma = torch.ones_like(zTa)
+
+    def combine(A, Bc, dg, m, c):
+        E1, E2 = acquire._lognormal_moments(m, c, gamma[:, None])
+        return torch.where(dg > 0, (zTa * zTa)[:, None], A * A + 2.0 * A * Bc * E1 + Bc * Bc * E2)
+
+    assert _normwise(combine(A, Bc, dg, m_a, c_a), combine(A0, B0, dg0, m0, c0), same) <= 1e-4
+    return A, Bc, dg, m_a, c_a
+
+
+@pytest.mark.parametrize("NP", [1, 4, 47, 48, 49, 64, 65, 220])
+def test_fleet_kernels_at_tile_edges(cuda, NP):
+    """NP = NP2 rows on each side of the column tiles' widths (16 … 64, and
+    two or four tiles above 64) and at the route's cap, B = 5, a grid of 1,037
+    points over the problems' domain."""
+    args_l, args_tl, zTa, half = _gp_fleet_inputs(cuda, 5, NP, NP, 1, seed=NP)
+    grid = torch.linspace(-half - 1.0, half + 1.0, 1037, device=cuda)[:, None]
+    _fleet_kernels_vs_plain(args_l, args_tl, zTa, grid, 0.05)
+
+
+@pytest.mark.parametrize("G", [1, 63, 10_037])
+def test_fleet_kernels_ragged_grid(cuda, G):
+    """The fleet path's (NP, NP2) = (44, 32) at B = 64 on grids that end
+    inside a block of 128 points: the edge is masked, not padded."""
+    args_l, args_tl, zTa, half = _gp_fleet_inputs(cuda, 64, 44, 32, 1, seed=G)
+    grid = torch.linspace(-half - 1.0, half + 1.0, G, device=cuda)[:, None]
+    _fleet_kernels_vs_plain(args_l, args_tl, zTa, grid, 0.05)
+
+
+@pytest.mark.parametrize("NP,NP2", [(12, 9), (60, 48)])
+def test_fleet_kernels_d3(cuda, NP, NP2):
+    """d = 3: rows and grid points in a cube, the sup-norm ``near`` test."""
+    args_l, args_tl, zTa, half = _gp_fleet_inputs(cuda, 4, NP, NP2, 3, seed=3)
+    grid = torch.as_tensor(np.random.RandomState(5).uniform(-half - 0.5, half + 0.5, (3001, 3)),
+                           dtype=torch.float32, device=cuda)
+    _fleet_kernels_vs_plain(args_l, args_tl, zTa, grid, 0.05)
+
+
+@pytest.mark.parametrize("NP,NP2", [(44, 32), (220, 208)])
+def test_fleet_kernels_bit_identical(cuda, NP, NP2):
+    """Two calls on the same inputs give the same bits: every sum has a fixed
+    order and there are no float atomics."""
+    args_l, args_tl, zTa, half = _gp_fleet_inputs(cuda, 16, NP, NP2, 1, seed=7)
+    grid = torch.linspace(-half - 1.0, half + 1.0, 4099, device=cuda)[:, None]
+    first = _fleet_kernels_vs_plain(args_l, args_tl, zTa, grid, 0.05)
+    (params, w_l, *rest_l), (h2, w_tl, *rest_tl) = args_l, args_tl
+    again = (*hk.esm_fleet_l(params, w_l, grid, *rest_l, 0.05, batched._LAM_F32),
+             *hk.esm_fleet_tl(h2, w_tl, grid, *rest_tl))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("max_obs", [32, 256])

@@ -7,109 +7,62 @@
 //   m_a = alpha^T k,   c_a = max(h^2 - k^T K^-1 k, 0)
 // with outputs m_a and c_a, each (B, G).
 //
-// Design and bound as esm_fleet_l.cu: block (tile, b) holds problem b's
-// K_tl^-1 (rows padded to float4), observations, mask and alpha in shared
-// memory, a thread owns one grid point, and the quadratic form is a float32
-// FMA chain fed by float4 broadcasts of the matrix rows: about 2 NP2^2
-// operations per point against 4 d bytes in and 8 bytes out, so shared-memory
-// bandwidth and the FMA rate bound it, not device memory.
+// What bounds it on Hopper: the float32 FMA rate. A point costs NP2^2
+// multiply-adds for the quadratic form and about 8 NP2 operations for k and
+// the dot, against about 4 d + 8 bytes of device memory (the problem's rows
+// and inverse are read once per 512 points). The first design ran the form
+// as a chain per point over float4 broadcasts of K_tl^-1's rows with four k
+// loads each, five shared-memory loads per four multiply-adds (15% of the
+// bound). Here it is the tiled product of esm_fleet_common.cuh: 128 points by
+// a tile of K_tl^-1's rows, NP2 rounded up to 16 (32 at NP2 32, no padding), 8 x 4
+// register tiles, three float4 shared-memory loads per 32 FMAs. At such small
+// NP2 the k pass (an expf per point and row) is a third of the work the form
+// is, so it is spread over every warp of the block; with one accumulator set
+// a block holds fewer registers than esm_fleet_l's, so an SM holds one more.
 
 #include "esm_fleet_common.cuh"
 
 namespace {
 
-template <int D>
-__global__ void esm_fleet_tl_kernel(const float* __restrict__ h2s,
-                                    const float* __restrict__ w2inv,
-                                    const float* __restrict__ grid, int G,
-                                    const float* __restrict__ xs,
-                                    const float* __restrict__ ms,
-                                    const float* __restrict__ Kinv,
-                                    const float* __restrict__ alpha, int NP,
-                                    float* __restrict__ outM, float* __restrict__ outC) {
+using namespace tpubq_fleet;
+
+template <int D, int CT>
+__global__ void __launch_bounds__(threads_of(CT), min_blocks(CT) + 1)  // one accumulator set: room for a block more
+esm_fleet_tl_kernel(const float* __restrict__ h2s, const float* __restrict__ w2inv,
+                    const float* __restrict__ grid, int G, const float* __restrict__ xs,
+                    const float* __restrict__ ms, const float* __restrict__ Kinv,
+                    const float* __restrict__ alpha, int NP, float* __restrict__ outM,
+                    float* __restrict__ outC) {
   extern __shared__ __align__(16) float smem[];
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const int NPS = tpubq_dev::round_up4(NP);
-
-  float* sK = smem;               // [NP][NPS]
-  float* kbuf = sK + NPS * NPS;   // [NPS][T]
-  float* sx = kbuf + NPS * T;     // [NP][D]
-  float* sm = sx + NP * D;        // [NP]
-  float* sal = sm + NP;           // [NP]
-  float* sw = sal + NP;           // [D]
-
-  tpubq_dev::load_padded_rows(Kinv + (size_t)b * NP * NP, sK, NP, NPS, tid, T);
-  for (int i = tid; i < NP * D; i += T) sx[i] = xs[(size_t)b * NP * D + i];
-  for (int i = tid; i < NP; i += T) {
-    sm[i] = ms[(size_t)b * NP + i];
-    sal[i] = alpha[(size_t)b * NP + i];
+  const float h2 = __ldg(h2s + b);
+  const size_t rows = (size_t)b * NP;
+  FleetBlock<D, CT, false> fb(smem, Kinv + rows * NP, NP);
+  fb.prologue(xs + rows * D, ms + rows, nullptr, alpha + rows);
+  for (int t = blockIdx.x; t * kPT < G; t += gridDim.x) {
+    fb.tile(t, grid, G, h2, w2inv + (size_t)b * D, 0.f);
+    for (int p = threadIdx.x; p < kPT && t * kPT + p < G; p += blockDim.x) {  // the ragged edge is masked
+      const Forms f = fb.forms(p);
+      const size_t o = (size_t)b * G + t * kPT + p;
+      outM[o] = f.ka;
+      outC[o] = fmaxf(h2 - f.s1, 0.f);
+    }
+    __syncthreads();  // the next tile's k pass overwrites the partials
   }
-  if (tid < D) sw[tid] = w2inv[(size_t)b * D + tid];
-  __syncthreads();
-
-  const int g = blockIdx.x * T + tid;
-  if (g >= G) return;  // ragged edge: no barrier follows
-
-  const float h2 = h2s[b];
-  float xa[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) xa[c] = grid[(size_t)g * D + c];
-  float* kb = kbuf + tid;
-
-  float mean = 0.f;
-  for (int j = 0; j < NP; ++j) {
-    float dmax;
-    const float r2 = tpubq_dev::scaled_sqdist<D>(sx + j * D, xa, sw, dmax);
-    const float k = h2 * expf(-r2) * sm[j];
-    kb[j * T] = k;
-    mean += sal[j] * k;
-  }
-  for (int j = NP; j < NPS; ++j) kb[j * T] = 0.f;
-
-  float quad, unused;
-  tpubq_dev::quad_forms<false>(sK, kb, NP, NPS, T, quad, unused);
-  const size_t o = (size_t)b * G + g;
-  outM[o] = mean;
-  outC[o] = fmaxf(h2 - quad, 0.f);
-}
-
-template <int D>
-int launch(const float* h2s, const float* w2inv, const float* grid, int G, const float* xs,
-           const float* ms, const float* Kinv, const float* alpha, int B, int NP, int threads,
-           int smem_bytes, float* outM, float* outC, cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        esm_fleet_tl_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 blocks((G + threads - 1) / threads, B);
-  esm_fleet_tl_kernel<D><<<blocks, threads, smem_bytes, stream>>>(
-      h2s, w2inv, grid, G, xs, ms, Kinv, alpha, NP, outM, outC);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// smem_bytes as for tpubq_esm_fleet_l (the wrapper sizes both alike).
+// threads and smem_bytes as for tpubq_esm_fleet_l (one layout for both kernels).
 extern "C" int tpubq_esm_fleet_tl(const float* h2s, const float* w2inv, const float* grid,
                                   int G, int d, const float* xs, const float* ms,
                                   const float* Kinv, const float* alpha, int B, int NP2,
                                   int threads, int smem_bytes, float* outM, float* outC,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1:
-      return launch<1>(h2s, w2inv, grid, G, xs, ms, Kinv, alpha, B, NP2, threads, smem_bytes,
-                       outM, outC, s);
-    case 2:
-      return launch<2>(h2s, w2inv, grid, G, xs, ms, Kinv, alpha, B, NP2, threads, smem_bytes,
-                       outM, outC, s);
-    case 3:
-      return launch<3>(h2s, w2inv, grid, G, xs, ms, Kinv, alpha, B, NP2, threads, smem_bytes,
-                       outM, outC, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_fleet(d, NP2, G, B, threads, smem_bytes, [&](auto dc, auto ctc) {
+    constexpr int D = decltype(dc)::value, CT = decltype(ctc)::value;
+    return launch_grid(esm_fleet_tl_kernel<D, CT>, G, B, threads, smem_bytes, s, h2s, w2inv, grid, G, xs,
+                       ms, Kinv, alpha, NP2, outM, outC);
+  });
 }

@@ -230,15 +230,16 @@ def Z_var_batch(states: BQState, opts: BQOptions) -> torch.Tensor:
 
 def fleet_scorer_supported(opts: BQOptions) -> bool:
     """Whether the fleet ESM kernels are the auto-dispatched scorer for this
-    configuration: float32 (the device dtype), gaussian kernel, d ≤ 3, and one
-    problem's K⁻¹ within a block's shared memory for both GPs
-    (``esm_fleet_l_supported(max_nsc)``, ``esm_fleet_tl_supported(max_obs)``:
-    up to 220 rows).
+    configuration: float32 (the device dtype), gaussian kernel, d ≤ 3, and at
+    most 220 rows per problem for both GPs (``esm_fleet_l_supported(max_nsc)``,
+    ``esm_fleet_tl_supported(max_obs)``).
 
-    The kernels' dot is a full-float32 FMA chain, so there is no precision
-    boundary below the shared-memory one: measured against float64 the
+    The kernels' quadratic forms are full-float32 FMA products, so there is
+    no precision boundary below that cap: measured against float64 the
     kernels are as close as the plain batched float32 scorer at 28, 60 and
-    126 rows per problem (PERF.md §6).
+    126 rows per problem (PERF.md §6). The cap is where the first design's
+    shared memory ended; widening it waits for that measurement beyond 126
+    rows.
     """
     return (
         opts.dtype == "float32"
@@ -335,8 +336,8 @@ def expected_squared_mean_fleet(states: BQState, opts: BQOptions, grid, interpre
 
     Semantics are those of the batched ``acquire.expected_squared_mean_xla``
     with the guard γ ≤ max(eps·κ, λ·kᵀ|K⁻¹|k); ``lam`` overrides λ. Needs a
-    float32 gaussian fleet with d ≤ 3 within the kernels' shared-memory
-    budget (any such size, whatever ``fleet_scorer_supported`` dispatches).
+    float32 gaussian fleet with d ≤ 3 and at most 220 rows per problem (any
+    such size, whatever ``fleet_scorer_supported`` dispatches).
     ``interpret``, ``tile`` and ``fast`` belong to the JAX package's signature
     (its interpreter, its grid tiling and its single-pass bf16 mode, all
     mechanisms of the TPU kernel) and are accepted and ignored.
@@ -347,8 +348,8 @@ def expected_squared_mean_fleet(states: BQState, opts: BQOptions, grid, interpre
             and hk.esm_fleet_l_supported(opts.max_nsc, d)
             and hk.esm_fleet_tl_supported(opts.max_obs, d)):
         raise ValueError(
-            "the fleet scorer needs f32 gaussian d<=3 with one problem's inverse in shared "
-            f"memory; got dtype={opts.dtype!r}, kernel={opts.kernel!r}, dim={d}, "
+            "the fleet scorer needs f32 gaussian d<=3 with at most 220 rows per problem; "
+            f"got dtype={opts.dtype!r}, kernel={opts.kernel!r}, dim={d}, "
             f"max_nsc={opts.max_nsc}, max_obs={opts.max_obs}"
         )
     _require_batched(states)

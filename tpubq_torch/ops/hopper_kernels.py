@@ -471,28 +471,51 @@ mll_grad_batched.launches = 0
 #: [3:6] μ, [6:6+d²] ½(W_l+Σ)⁻¹ row-major, [15] h_l² (the TPU kernel's (P, 16)
 #: block with its spare slot used for h_l²).
 FLEET_PARAMS = 16
-_FLEET_THREADS = (128, 64, 32)
+#: Rows per problem the fleet kernels take: the route's cap. It is the limit of
+#: the first design, which held one problem's K⁻¹ and a k column per thread in
+#: shared memory; the tiled kernels need far less, but the fleet scorer's
+#: precision against float64 is measured only up to 126 rows, so the route
+#: stays where it was.
+FLEET_MAX_ROWS = 220
+#: Grid points per block, points of a thread's register tile and rows of K⁻¹
+#: per staged chunk (``csrc/esm_fleet_common.cuh``: kPT, kLDK − kPT, kQP, kJC).
+_FLEET_PT, _FLEET_PAD, _FLEET_QP, _FLEET_JC = 128, 4, 8, 64
 #: Elements of a (B, NP, tile) intermediate the plain versions allow themselves.
 _PLAIN_TILE_ELEMS = 1 << 23
 
 
+def _fleet_col_width(NP: int) -> int:
+    """Width CT of the fleet kernels' column tiles (of V = (K⁻¹k)ᵀ, i.e. rows
+    of K⁻¹): NP split evenly over ⌈NP/64⌉ tiles and rounded up to 16 (48 at
+    NP 44, 32 at NP 32, 64 at NP 220)."""
+    tiles = (NP + 63) // 64
+    return ((NP + tiles - 1) // tiles + 15) // 16 * 16
+
+
 def _fleet_launch_config(NP: int, d: int):
-    """(threads, smem_bytes) of a fleet scorer launch, or None. Shared memory
-    holds one problem: K⁻¹ with its rows padded to a multiple of four floats
-    (the kernels read it as float4), the k buffer of every thread, and the
-    problem's vectors and scalars."""
-    nps = (NP + 3) // 4 * 4
-    for t in _FLEET_THREADS:
-        floats = nps * nps + nps * t + NP * (d + 3) + FLEET_PARAMS + d
-        if 4 * floats <= SMEM_LIMIT:
-            return t, 4 * floats
-    return None
+    """(threads, smem_bytes) of a fleet scorer launch, or None: the layout of
+    ``csrc/esm_fleet_common.cuh`` (``threads_of``, ``smem_floats``), which the
+    kernels check; both kernels use it. A block takes one problem and tiles
+    of 128 grid points, one thread per 8 points × 4 columns of a column tile
+    CT wide. Shared memory holds the problem's rows (x, m, α, uz: 4 or 8
+    floats each), the points' k tile (NP rows of 132 floats), one staged
+    chunk of K⁻¹ (min(NP, 64) × CT; two when K⁻¹ takes several) and the
+    partial sums (2·CT/4 rows of 128, and 3 per warp of the k pass)."""
+    if not (1 <= d <= 3 and 1 <= NP <= FLEET_MAX_ROWS):
+        return None
+    ct = _fleet_col_width(NP)
+    steps = ((NP + 63) // 64) * ((NP + _FLEET_JC - 1) // _FLEET_JC)
+    threads = (_FLEET_PT // _FLEET_QP) * (ct // 4)
+    record = (d + 6) // 4 * 4
+    floats = (NP * (record + _FLEET_PT + _FLEET_PAD) + (2 if steps > 1 else 1) * min(NP, _FLEET_JC) * ct
+              + 2 * (ct // 4) * _FLEET_PT + 3 * (threads // 32) * _FLEET_PT)
+    return threads, 4 * floats
 
 
 def esm_fleet_l_supported(NP: int, d: int) -> bool:
-    """Whether ``esm_fleet_l`` covers NP rows per problem: d ≤ 3 and one
-    problem's K⁻¹ plus 32 k buffers within 227 KB of shared memory, NP ≤ 220."""
-    return 1 <= d <= 3 and NP >= 1 and _fleet_launch_config(NP, d) is not None
+    """Whether ``esm_fleet_l`` covers NP rows per problem: d ≤ 3 and
+    1 ≤ NP ≤ ``FLEET_MAX_ROWS`` (220)."""
+    return _fleet_launch_config(NP, d) is not None
 
 
 def esm_fleet_tl_supported(NP2: int, d: int) -> bool:
@@ -584,8 +607,8 @@ def _check_fleet(name: str, grid, rows: dict, B: int, NP: int, d: int):
         raise ValueError(f"{name}: unsupported device {grid.device}")
     if grid.device.type == "cuda" and _fleet_launch_config(NP, d) is None:
         raise ValueError(
-            f"{name}: {NP} rows per problem exceed the shared-memory budget "
-            f"(see {name}_supported)"
+            f"{name}: {NP} rows per problem exceed the fleet route's {FLEET_MAX_ROWS} rows "
+            f"(the shared-memory budget of the first design; see {name}_supported)"
         )
     if B > 65535:
         raise ValueError(f"{name}: at most 65535 problems per launch, got {B}")

@@ -14,7 +14,8 @@ before the final line):
               tpubq_torch/csrc, all at once) for sm_90a; print the build
               seconds and ptxas' report.
 2. kernels  — each kernel against its plain PyTorch twin on the card, at the
-              main paths' shapes and the ones around them, with stated
+              main paths' shapes and the ones around them (chol_batch at
+              the paths' stacks and the edges of its regimes), with stated
               tolerances (the fleet kernels up to the route's 220 rows and
               on a ragged grid); the fleet scorer and the plain batched float32
               scorer against float64 at 28, 60 and 126 rows per problem; the
@@ -30,7 +31,8 @@ before the final line):
               points → add_observation) → choose_next(n=10) →
               marginalize(n=100), checked against the port's own float64 CPU
               path on the same data, hypers and hyper samples; every kernel's
-              launch counter must grow, mll_grad's by exactly 2·(n_iter + 1).
+              launch counter (gaussian_gram's included) must grow, mll_grad's
+              by exactly 2·(n_iter + 1).
 4. fleet    — the f32 fleet through the BQFleet facade on the card at full
               width: 64 problems, a shared grid of 10,000 points, fit (all
               64 × 10 restart rows in one mll_grad launch per Adam step) →
@@ -222,6 +224,12 @@ def bound(nbytes: float, ops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def chol_batch_bytes(B: int, n: int) -> int:
+    """Bytes ``chol_batch`` must move: the lower triangle of each input read
+    once (the contract reads no more), each n × n factor written once."""
+    return 4 * B * (n * (n + 1) // 2 + n * n)
+
+
 def make_bq(x, device, dtype, max_obs=32, n_candidate=12, s=0.0):
     from tpubq_torch import BQ
 
@@ -343,6 +351,15 @@ def _gram_stack(B, n, live, rng, dev, rung=1e-4):
     return K + torch.eye(n, device=dev) * (rung * scale)[:, None, None] * mask.float()
 
 
+#: chol_batch's stacks on the paths (B, n, live rows): marginalize(100) at
+#: max_obs 32, the fleet's two-rung refits at B = 64 (log-GP 32 rows, linear
+#: GP 44), marginalize at max_obs 128, and the card tests' (256, 80).
+CHOL_PATH_SHAPES = ((200, 32, 21), (200, 44, 33), (128, 32, 21), (128, 44, 33), (200, 128, 116), (256, 80, 61))
+#: ... and at the edges of its regimes (picked by csrc/chol_batch.cu) and of
+#: its padded row stride in shared memory (238, the last n it pads).
+CHOL_EDGE_SHAPES = tuple((8, n, max(1, 3 * n // 4)) for n in (1, 15, 16, 17, 31, 33, 48, 49, 63, 64, 65, 140, 200, 238, 240))
+
+
 def check_chol(dev) -> dict:
     """The kernel against its plain twin on the Grams marginalize factors.
 
@@ -361,7 +378,7 @@ def check_chol(dev) -> dict:
 
     rng = np.random.RandomState(0)
     cases, worst = [], 0.0
-    for B, n, live in ((200, 32, 21), (200, 44, 33), (256, 80, 61)):
+    for B, n, live in CHOL_PATH_SHAPES + CHOL_EDGE_SHAPES:
         Ks = _gram_stack(B, n, live, rng, dev)
         L = hk.chol_batch(Ks)
         torch.cuda.synchronize()
@@ -378,12 +395,15 @@ def check_chol(dev) -> dict:
         check(cases[-1]["norm_err"] <= max(CHOL_NORM_TOL, 2.0 * cases[-1]["library_norm_err"]),
               f"chol_batch vs plain within the library's distance ({cases[-1]})")
         worst = max(worst, err)
-    # an indefinite matrix gets NaN in its own factor only
-    Ks = _gram_stack(16, 44, 33, rng, dev)
-    Ks[5] = -Ks[5]
-    L = hk.chol_batch(Ks)
-    ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1).cpu().numpy()
-    check(not ok[5] and ok[np.arange(16) != 5].all(), "chol_batch NaN confined to the indefinite matrix")
+    # an indefinite matrix gets NaN in its own factor only, in each regime
+    # (one panel of 16 or 32 columns, a warp at 48 or 64, panels of 32)
+    for n in (9, 30, 44, 60, 100):
+        Ks = _gram_stack(16, n, n, rng, dev)
+        Ks[5] = -Ks[5]
+        L = hk.chol_batch(Ks)
+        ok = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1).cpu().numpy()
+        check(not ok[5] and ok[np.arange(16) != 5].all(), f"chol_batch NaN confined to the indefinite matrix (n = {n})")
+        check(bool((torch.triu(L, 1) == 0).all()), f"chol_batch exact zeros above the diagonal (n = {n}, with NaN)")
     emit("kernels_chol", tol_norm=CHOL_NORM_TOL, tol_backward=CHOL_BACKWARD_TOL, cases=cases,
          nan_confined=True)
     return {"max_abs_err": worst}
@@ -625,7 +645,7 @@ def main_path(dev) -> dict:
     grid64 = torch.as_tensor(grid, dtype=torch.float64)
     grid_dev = torch.as_tensor(grid, dtype=torch.float32, device=dev)
 
-    for wrapper in (hk.esm_fused, hk.chol_batch, hk.mll_grad_batched):
+    for wrapper in (hk.esm_fused, hk.chol_batch, hk.mll_grad_batched, hk.gaussian_gram):
         wrapper.launches = 0
     t0 = time.perf_counter()
     bq.fit_hypers(ntry=FIT_RESTARTS, seed=FIT_SEED)
@@ -654,7 +674,7 @@ def main_path(dev) -> dict:
     torch.cuda.synchronize()
     seconds = fit_seconds + time.perf_counter() - t0
     launches = {"esm_fused": hk.esm_fused.launches, "chol_batch": hk.chol_batch.launches,
-                "mll_grad": hk.mll_grad_batched.launches}
+                "mll_grad": hk.mll_grad_batched.launches, "gaussian_gram": hk.gaussian_gram.launches}
 
     # the scorer kernel against its twin on each state the loop scored, at the
     # main path's own shapes (after the counts were read: these launches compare)
@@ -1026,7 +1046,7 @@ def fleet_path(dev) -> dict:
     grid64 = torch.as_tensor(grid, dtype=torch.float64)
     grid_dev = torch.as_tensor(grid, dtype=torch.float32, device=dev)
     wrappers = dict(esm_fused=hk.esm_fused, chol_batch=hk.chol_batch, mll_grad=hk.mll_grad_batched,
-                    esm_fleet_l=hk.esm_fleet_l, esm_fleet_tl=hk.esm_fleet_tl)
+                    esm_fleet_l=hk.esm_fleet_l, esm_fleet_tl=hk.esm_fleet_tl, gaussian_gram=hk.gaussian_gram)
     counts = lambda: {k: w.launches for k, w in wrappers.items()}  # noqa: E731
 
     for w in wrappers.values():
@@ -2035,16 +2055,18 @@ def timing(dev, mp: dict, label: str) -> dict:
     esm_plain_ms = cuda_ms(lambda: hk.esm_fused_plain(*args), 50)
     rng = np.random.RandomState(1)
     chol = {}
-    # B = 200: marginalize(n=100)'s rung stack; B = 2, 4, 8: the stacks of
+    # CHOL_PATH_SHAPES: marginalize(n=100)'s rung stack, the fleet's refits
+    # at B = 64 and marginalize at max_obs 128; B = 2, 4, 8: the stacks of
     # small batched refits, where posdef_cholesky_batched picks the route
-    for B, n, live in ((200, 32, 21), (200, 44, 33), (2, 32, 21), (4, 32, 21), (8, 32, 21),
-                       (2, 44, 33), (4, 44, 33), (8, 44, 33)):
+    for B, n, live in CHOL_PATH_SHAPES + ((2, 32, 21), (4, 32, 21), (8, 32, 21), (2, 44, 33), (4, 44, 33),
+                                          (8, 44, 33)):
         Ks = _gram_stack(B, n, live, rng, dev)
         chol[f"{B}x{n}x{n}"] = dict(
             kernel_ms=cuda_ms(lambda: hk.chol_batch(Ks), 200),
             library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(Ks), 200),
+            bound_ms=bound(chol_batch_bytes(B, n), B * n**3 // 3)["bound_ms"], dependent_steps=n,
         )
-        if B == 200:
+        if B >= 128:
             chol[f"{B}x{n}x{n}"]["plain_ms"] = cuda_ms(lambda: hk.chol_batch_plain(Ks), 10)
     xs = np.linspace(-3.9, 3.9, 7)
     add_ms = host_ms(lambda: [acquire.add_observation(st, opts, xa, 0.01) for xa in xs], 5) / len(xs)
@@ -2253,7 +2275,7 @@ def main() -> int:
         dict(name="chol_batch", route="cuda", source="tpubq_torch/csrc/chol_batch.cu",
              replaces="tpubq/ops/pallas_kernels.py:641", launches=mp["launches"]["chol_batch"],
              max_abs_err=chol["max_abs_err"], ms=chol_t["kernel_ms"], plain_ms=chol_t["plain_ms"],
-             **bound(2 * 4 * cB * cn * cn, cB * cn**3 // 3), library_ms=chol_t["library_ms"],
+             **bound(chol_batch_bytes(cB, cn), cB * cn**3 // 3), library_ms=chol_t["library_ms"],
              shape=f"({cB}, {cn}, {cn})", dependent_steps=cn),
         dict(name="mll_grad_batched", route="cuda", source="tpubq_torch/csrc/mll_grad.cu",
              replaces="tpubq/ops/pallas_kernels.py:304", launches=mp["launches"]["mll_grad"],
@@ -2281,8 +2303,12 @@ def main() -> int:
              shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
     kernels += large_kernel_entries(lp, lk, lt)
-    kernels[1]["fleet_launches"] = fp["launches"]["chol_batch"]
-    kernels[1]["large_n_launches"] = lp["launches"]["chol_batch"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["chol_batch"].update(fleet_launches=fp["launches"]["chol_batch"],
+                                 large_n_launches=lp["launches"]["chol_batch"],
+                                 **{f"at_{k}": v for k, v in t["chol_batch"].items() if k != f"{cB}x{cn}x{cn}"})
+    by_name["gaussian_gram"].update(single_launches=mp["launches"]["gaussian_gram"],
+                                    fleet_launches=fp["launches"]["gaussian_gram"])
     emit("elapsed", seconds=time.perf_counter() - t_start, limit_seconds=1200)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(label, flush=True)

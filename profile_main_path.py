@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 profile_main_path.py [--out profile_main_path.txt] [--root DIR] [--kernels] [--only NAME]
+                                 [--profiles N]
 
 Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 10,000-point grid, three active steps taken first):
@@ -31,21 +32,30 @@ For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
 busy time under ``torch.profiler`` (the union of the kernels' intervals on the
 device timeline), the idle share 1 − busy / wall, and the kernel count. The
-per-operator tables go to ``--out``. Imports nothing from JAX.
+per-operator tables go to ``--out``, with each profiled run's count of
+every device kernel by name. ``--profiles N`` profiles each piece N times
+and adds each run's kernel count and busy time to its line, and the names
+whose count differs between the runs. Imports nothing from JAX.
 
 ``--kernels`` times kernels alone instead (``kernel_cases``): every kernel
-of PERF.md's table at the paths' shapes (``mll_grad`` at (10, 32), (10, 44),
+of PERF.md's table at the paths' shapes (``chol_batch`` at ``CHOL_SHAPES``
+with the library's ``cholesky_ex`` beside it, ``cholesky_batched`` above 64
+rows and panels of 32 forced at 44 (``chol_panels``); ``gaussian_gram``
+at ``GRAM_SHAPES``; ``mll_grad`` at (10, 32), (10, 44),
 (640, 32), (10, 256) and (10, 1036), and at (10, 64), (10, 96) and (10, 128)
 by the wrapper's regime and by the tiles: ``MLL_CROSSOVER``; the fleet
 kernels at the three B = 64 fleets of ``FLEET_SHAPES``), with the library
 call beside it where there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
-and as device ms per call from ``torch.profiler``'s per-kernel durations.
+and as device ms per call from ``torch.profiler``'s per-kernel durations;
+and ``device_context``, the host µs of entering a wrapper's device context
+(``device_context_us``).
 ``--root DIR`` imports ``tpubq_torch`` from DIR (an unpacked parent commit,
 say), so that two versions of the kernels are timed by the same code in one
-call: parent, change, change, parent. ``--only NAME`` keeps the pieces (with
-``--kernels``, the kernels) whose name starts with NAME: ``--only fleet``
-profiles the fleet's fit and step, ``--kernels --only esm_fleet`` times the
-two fleet kernels.
+call: parent, change, change, parent. ``--only NAME[,NAME...]`` keeps the
+pieces (with ``--kernels``, the kernels) whose name starts with one of the
+NAMEs: ``--only fleet`` profiles the fleet's fit and step, ``--kernels --only
+chol_batch,gaussian_gram`` times those two kernels, ``--kernels --only
+esm_fleet`` the two fleet kernels.
 """
 
 from __future__ import annotations
@@ -74,18 +84,37 @@ def busy_us(events) -> tuple[float, int]:
     return total, len(spans)
 
 
-def profile_piece(name: str, fn, iters: int, out) -> dict:
+def short_name(name: str) -> str:
+    """A device activity's name without its return type, namespace and arguments."""
+    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:60]
+
+
+def profile_piece(name: str, fn, iters: int, out, profiles: int = 1) -> dict:
+    import collections
+
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     wall_ms = cs.host_ms(fn, iters)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    busy, n_kernels = busy_us(prof.events())
-    cs.check(n_kernels > 0, f"{name}: the profiler saw device kernels")
-    res = dict(piece=name, wall_ms=wall_ms, device_busy_ms=busy * 1e-3,
-               idle_share=max(0.0, 1.0 - busy * 1e-3 / wall_ms), device_kernels=n_kernels)
+    runs = []
+    for _ in range(profiles):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy, n_kernels = busy_us(prof.events())
+        cs.check(n_kernels > 0, f"{name}: the profiler saw device kernels")
+        names = collections.Counter(short_name(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)
+        runs.append((busy * 1e-3, n_kernels, names))
+        out.write(json.dumps({"piece": name, "kernel_names": dict(sorted(names.items()))}) + "\n")
+    busy_ms, n_kernels, _ = runs[0]
+    res = dict(piece=name, wall_ms=wall_ms, device_busy_ms=busy_ms,
+               idle_share=max(0.0, 1.0 - busy_ms / wall_ms), device_kernels=n_kernels)
+    if profiles > 1:
+        every = sorted(set().union(*(r[2] for r in runs)))
+        res.update(device_busy_ms_runs=[r[0] for r in runs], device_kernels_runs=[r[1] for r in runs],
+                   kernel_names_differ={k: [r[2][k] for r in runs] for k in every
+                                        if len({r[2][k] for r in runs}) > 1})
     out.write(json.dumps(res) + "\n")
     out.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15) + "\n")
     print(json.dumps(res), flush=True)
@@ -100,8 +129,10 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--root", default=None, help="import tpubq_torch from this directory")
     ap.add_argument("--kernels", action="store_true", help="time the kernels alone")
+    ap.add_argument("--profiles", type=int, default=1, help="profiled runs of each piece")
     ap.add_argument("--only", default=None,
-                    help="the pieces (with --kernels: the kernels) whose name starts with this")
+                    help="the pieces (with --kernels: the kernels) whose name starts with one of these "
+                         "comma-separated prefixes")
     args = ap.parse_args()
     if args.root is not None:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -118,22 +149,22 @@ def main() -> int:
         return 0
 
     grid = np.linspace(-4.0, 4.0, cs.G)
-    want = lambda *names: not args.only or any(n.startswith(args.only) for n in names)  # noqa: E731
+    want = lambda *names: not args.only or any(n.startswith(tuple(args.only.split(","))) for n in names)  # noqa: E731
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as out:
         out.write(f"{label}\n")
         if want("fit_hypers", "step", "marginalize", "sampler"):
-            profile_single(dev, grid, args.iters, out, want)
+            profile_single(dev, grid, args.iters, out, want, args.profiles)
         if want("fleet_fit", "fleet_step"):
-            profile_fleet(dev, grid, args.iters, out)
+            profile_fleet(dev, grid, args.iters, out, args.profiles)
         if want("large_refit_step", "large_fast_step", "large_marginalize"):
-            profile_large_n(dev, args.iters, out)
+            profile_large_n(dev, args.iters, out, args.profiles)
         if want("large_fit_hypers"):
-            profile_large_fit(dev, out)
+            profile_large_fit(dev, out, args.profiles)
     return 0
 
 
-def profile_single(dev, grid, iters: int, out, want) -> None:
+def profile_single(dev, grid, iters: int, out, want, profiles: int = 1) -> None:
     """The single problem's pieces on the testbed: fit_hypers from the
     initial state, then after three active steps a step, marginalize and the
     sampler (those ``want`` keeps)."""
@@ -163,13 +194,13 @@ def profile_single(dev, grid, iters: int, out, want) -> None:
 
     th = torch.as_tensor(thetas, dtype=torch.float32, device=dev)
     if want("fit_hypers"):
-        profile_piece("fit_hypers", fit, 3, out)
+        profile_piece("fit_hypers", fit, 3, out, profiles)
     if want("step"):
-        profile_piece("step", step, iters, out)
+        profile_piece("step", step, iters, out, profiles)
     if want("marginalize"):
-        profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), iters, out)
+        profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), iters, out, profiles)
     if want("sampler"):
-        profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out)
+        profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out, profiles)
     bq._state = st
 
 
@@ -191,7 +222,7 @@ def device_ms(fn, iters: int) -> tuple:
     by = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            key = e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:60]
+            key = short_name(e.name)
             by[key] = by.get(key, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3 / iters
     cs.check(bool(by), "the profiler saw device activity")
     return sum(by.values()), by
@@ -217,8 +248,14 @@ def kernel_cases(dev) -> list:
     big = acquire.esm_fused_inputs(st, opts, torch.linspace(-4.0, 4.0, cs.LARGE_G, device=dev)[:, None])
     cases += [("esm_fused", "G10000_NP44", lambda: hk.esm_fused(*small), 200),
               ("esm_fused", "G512_NP1036", lambda: hk.esm_fused(*big), 5)]
-    Ks = cs._gram_stack(200, 32, 21, rng, dev)
-    cases.append(("chol_batch", "200x32x32", lambda: hk.chol_batch(Ks), 200))
+    for B, n, live in CHOL_SHAPES:
+        Ks = cs._gram_stack(B, n, live, rng, dev)
+        cases += [("chol_batch", f"{B}x{n}x{n}", lambda Ks=Ks: hk.chol_batch(Ks), 200),
+                  ("chol_batch: cholesky_ex (library)", f"{B}x{n}x{n}", lambda Ks=Ks: torch.linalg.cholesky_ex(Ks), 200)]
+        if n > 64:  # the other route these n could take
+            cases.append(("chol_batch: cholesky_batched", f"{B}x{n}x{n}", lambda Ks=Ks: hk.cholesky_batched(Ks), 50))
+        elif n > 32 and B >= 128:  # the same stack in panels of 32
+            cases.append(("chol_batch (panels)", f"{B}x{n}x{n}", lambda Ks=Ks: chol_panels(Ks), 200))
     gen = torch.Generator().manual_seed(cs.FIT_SEED)
     for _, theta0, s, x, y, mask in cs.fit_problems(bq.state):
         th = torch.exp(fitm.random_restarts(gen, theta0, x, y, mask, cs.FIT_RESTARTS))
@@ -249,10 +286,12 @@ def kernel_cases(dev) -> list:
                    lambda a=(params, w_l, grid, *rest_l, thresh, lam): hk.esm_fleet_l(*a), 50),
                   ("esm_fleet_tl", f"B{cs.FLEET_B}_G{cs.G}_NP2={o_f.max_obs}",
                    lambda a=(h2, w_tl, grid, *rest_tl): hk.esm_fleet_tl(*a), 50)]
-    n = cs.LARGE_TIMING_N[0]
-    xg = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n))[:, None], dtype=torch.float32, device=dev)
     thg = torch.tensor(cs.PARAMS_L, device=dev)
-    cases.append(("gaussian_gram", f"{n}x{n}", lambda: hk.gaussian_gram(thg, xg, xg), 200))
+    for n1, n2 in GRAM_SHAPES:
+        x1 = torch.as_tensor(np.sort(rng.uniform(-2.2, 2.2, n1))[:, None], dtype=torch.float32, device=dev)
+        x2 = x1 if n2 == n1 else torch.as_tensor(rng.uniform(-4.0, 4.0, (n2, 1)), dtype=torch.float32, device=dev)
+        cases.append(("gaussian_gram", f"{n1}x{n2}", lambda x1=x1, x2=x2: hk.gaussian_gram(thg, x1, x2), 200))
+    n = cs.LARGE_TIMING_N[0]
     for B, N in cs.LARGE_TIMING_BATCHED:
         Kb = torch.stack([cs.path_gram(rng, N, dev) for _ in range(8)]).repeat(B // 8, 1, 1).contiguous()
         cases += [("cholesky_batched", f"{B}x{N}x{N}", lambda Kb=Kb: hk.cholesky_batched(Kb), 3),
@@ -270,6 +309,18 @@ def kernel_cases(dev) -> list:
     return cases
 
 
+#: ``chol_batch``'s stacks (B, n, live rows): marginalize(100) at max_obs 32,
+#: the fleet's two-rung refits at B = 64 (log-GP 32 rows, linear GP 44),
+#: small batched refits, marginalize at max_obs 128, and (200, 140) and the
+#: card tests' (256, 80), where the panels were held against the
+#: ``cholesky_batched`` route.
+CHOL_SHAPES = ((200, 32, 21), (128, 32, 21), (128, 44, 33), (2, 32, 21), (4, 32, 21), (8, 32, 21),
+               (2, 44, 33), (4, 44, 33), (8, 44, 33), (200, 128, 116), (200, 140, 128), (256, 80, 61))
+
+#: ``gaussian_gram`` (n1, n2) at d = 1: the linear GP's Gram at max_obs 1024,
+#: its column against one point, and 44 rows against a 10⁴-point grid.
+GRAM_SHAPES = ((1036, 1036), (1036, 1), (44, 10_000))
+
 #: The fleets of chip_smoke.py's ``check_fleet_kernels`` at B = 64 (n_obs,
 #: max_obs, s): (NP, NP2) = (28, 16), (44, 32) — the fleet path's — and (60, 48).
 FLEET_SHAPES = ((10, 16, 0.0), (cs.FLEET_N_OBS, cs.FLEET_MAX_OBS, cs.S_MAIN), (8, 48, 0.0))
@@ -279,6 +330,52 @@ FLEET_SHAPES = ((10, 16, 0.0), (cs.FLEET_N_OBS, cs.FLEET_MAX_OBS, cs.S_MAIN), (8
 #: ``--root`` on a version whose one-block regime reaches 128 rows to see it
 #: against the tiles at 96 and 128.
 MLL_CROSSOVER = (64, 96, 128)
+
+
+def chol_panels(Ks):
+    """``chol_batch`` of the stack Ks in panels of 32 columns whatever its n,
+    through the C entry's panels_only argument (32 < n ≤ 64 would take the
+    warp kernel); a version whose entry has no such argument reports
+    ValueError."""
+    import torch
+
+    from tpubq_torch.ops import _build
+
+    if len(_build._SIG["tpubq_chol_batch"][0]) != 6:
+        raise ValueError("this version has no panels_only")
+    B, n, _ = Ks.shape
+    L = torch.empty_like(Ks)
+    err = _build.library().tpubq_chol_batch(Ks.data_ptr(), L.data_ptr(), B, n, 1,
+                                            torch.cuda.current_stream(Ks.device).cuda_stream)
+    cs.check(err == 0, f"chol_batch in panels launched at {(B, n)}")
+    return L
+
+
+def device_context_us(dev, reps: int = 20_000, turns: int = 5) -> dict:
+    """Host µs per entry and exit of the device context around a launch, in
+    ``turns`` alternating turns of ``reps`` each: ``torch.cuda.device`` on the
+    tensor's device, ``hk._device_of`` where the version has it (a no-op when
+    that card is current), and an empty context as the loop's own cost."""
+    import contextlib
+    import time
+
+    import torch
+
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    t = torch.zeros(4, device=dev)
+    ways = {"nullcontext": contextlib.nullcontext, "torch.cuda.device": lambda: torch.cuda.device(t.device)}
+    if hasattr(hk, "_device_of"):
+        ways["_device_of"] = lambda: hk._device_of(t)
+    res = {k: [] for k in ways}
+    for _ in range(turns):
+        for k, ctx in ways.items():
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with ctx():
+                    pass
+            res[k].append((time.perf_counter() - t0) / reps * 1e6)
+    return {f"{k}_us_turns": v for k, v in res.items()}
 
 
 def tiles_only(fn):
@@ -302,8 +399,10 @@ def kernel_times(dev, label: str, only: str | None = None) -> None:
     pace where a kernel is shorter than its wrapper), and the device ms per
     call under ``torch.profiler`` (``device_ms``). A shape this version of the
     package does not take is reported as such."""
+    if not only or "device_context".startswith(tuple(only.split(","))):
+        print(json.dumps({"kernel": "device_context", "card": label, **device_context_us(dev)}), flush=True)
     for kernel, shape, fn, it in kernel_cases(dev):
-        if only and not kernel.startswith(only):
+        if only and not kernel.startswith(tuple(only.split(","))):
             continue
         try:
             turns = [cs.cuda_ms(fn, it) for _ in range(2)]
@@ -315,7 +414,7 @@ def kernel_times(dev, label: str, only: str | None = None) -> None:
                           "event_ms": min(turns), "device_ms": dms, "device_ms_by_activity": by}), flush=True)
 
 
-def profile_large_fit(dev, out) -> None:
+def profile_large_fit(dev, out, profiles: int = 1) -> None:
     """``BQ.fit_hypers`` at max_obs 1024 on the large-N recipe, from its
     initial state: the fused Adam route over the tiles, or in a version that
     caps ``mll_grad`` the L-BFGS over autograd."""
@@ -326,10 +425,10 @@ def profile_large_fit(dev, out) -> None:
         bq._state = st0
         bq.fit_hypers(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
 
-    profile_piece("large_fit_hypers", fit, 1, out)
+    profile_piece("large_fit_hypers", fit, 1, out, profiles)
 
 
-def profile_large_n(dev, iters: int, out) -> None:
+def profile_large_n(dev, iters: int, out, profiles: int = 1) -> None:
     import torch
 
     from tpubq_torch.models import acquire, incremental as inc, marginalize as margm
@@ -343,14 +442,14 @@ def profile_large_n(dev, iters: int, out) -> None:
         acquire.choose_next(st, opts, grid)
         add(st, opts, [x_mid], l_mid)
 
-    profile_piece("large_refit_step", lambda: step(acquire.add_observation), iters, out)
-    profile_piece("large_fast_step", lambda: step(inc.add_observation_fast), iters, out)
+    profile_piece("large_refit_step", lambda: step(acquire.add_observation), iters, out, profiles)
+    profile_piece("large_fast_step", lambda: step(inc.add_observation_fast), iters, out, profiles)
     thetas = torch.as_tensor(np.exp(np.log(cs.PARAMS_TL) + 0.15 * np.random.RandomState(12).randn(cs.LARGE_MARG_N, 2)),
                              dtype=torch.float32, device=dev)
-    profile_piece("large_marginalize", lambda: margm.marginalize(st, opts, thetas), 3, out)
+    profile_piece("large_marginalize", lambda: margm.marginalize(st, opts, thetas), 3, out, profiles)
 
 
-def profile_fleet(dev, grid, iters: int, out) -> None:
+def profile_fleet(dev, grid, iters: int, out, profiles: int = 1) -> None:
     from tpubq_torch import BQFleet
 
     xs, ls, mus = cs.fleet_data(cs.FLEET_B, cs.FLEET_N_OBS)
@@ -362,7 +461,7 @@ def profile_fleet(dev, grid, iters: int, out) -> None:
         fleet._states = st0
         fleet.fit(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
 
-    profile_piece("fleet_fit", fit, 3, out)
+    profile_piece("fleet_fit", fit, 3, out, profiles)
     for _ in range(3):
         xn = fleet.choose_next(grid)
         fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
@@ -373,7 +472,7 @@ def profile_fleet(dev, grid, iters: int, out) -> None:
         xn = fleet.choose_next(grid)
         fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
 
-    profile_piece("fleet_step", step, iters, out)
+    profile_piece("fleet_step", step, iters, out, profiles)
 
 
 if __name__ == "__main__":

@@ -36,7 +36,7 @@ def _f32(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.float32)
 
 
-@pytest.mark.parametrize("n1,n2,d", [(50, 300, 1), (20, 40, 3)])
+@pytest.mark.parametrize("n1,n2,d", [(50, 300, 1), (20, 40, 3), (1, 37, 2), (33, 5, 3), (7, 1, 1)])
 def test_gaussian_gram_plain_matches_pallas(n1, n2, d):
     rng = np.random.RandomState(7 + d)
     theta = np.concatenate([[1.3], rng.uniform(0.5, 1.1, d)]).astype(np.float32)

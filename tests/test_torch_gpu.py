@@ -90,6 +90,111 @@ def test_chol_batch_kernel_nan_confined(cuda):
     assert np.all(np.isfinite(np.delete(L, 4, axis=0)))
 
 
+# the edges of chol_batch's regimes (picked by csrc/chol_batch.cu): one panel of 16
+# or 32 columns up to 32 rows, a warp padded to 48 or 64 columns up to 64,
+# panels of 32 from 65 rows to the route's 240 (three to eight panels,
+# ragged last panels); 238 is the last n whose rows are padded to a stride
+# of 4 mod 8 in shared memory
+CHOL_EDGES = (1, 15, 16, 17, 31, 32, 33, 44, 48, 49, 63, 64, 65, 128, 140, 200, 238, 240)
+
+
+@pytest.mark.parametrize("B", [1, 2, 200])
+@pytest.mark.parametrize("n", CHOL_EDGES)
+def test_chol_batch_kernel_matches_plain_at_regime_edges(cuda, n, B):
+    """Against the twin at rtol 2e-4 / atol 5e-5, exact zeros above the
+    diagonal; the upper triangle of the input is filled with NaN, which
+    the kernel must not read into the factor."""
+    K = _spd(np.random.RandomState(n + B), B, n)
+    Ks = torch.as_tensor(K, device=cuda)
+    dirty = torch.as_tensor(np.where(np.triu(np.ones((n, n), bool), 1), np.nan, K).astype(np.float32), device=cuda)
+    L = hk.chol_batch(dirty)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(L, hk.chol_batch_plain(Ks), rtol=2e-4, atol=5e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.parametrize("n", [9, 30, 44, 64, 100, 240])
+def test_chol_batch_kernel_nan_confined_in_each_regime(cuda, n):
+    """An indefinite matrix (first pivot negative) and one that fails at its
+    last pivot get NaN in their own factors only; every other factor is
+    finite and matches the twin; exact zeros above every diagonal."""
+    K = _spd(np.random.RandomState(n), 7, n)
+    K[2] = -K[2]
+    K[5, n - 1, n - 1] = -1.0e4 * n  # a negative Schur complement at the last step
+    Ks = torch.as_tensor(K, device=cuda)
+    L = hk.chol_batch(Ks)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(L).flatten(1).all(1).cpu().numpy()
+    assert not fin[2] and not fin[5] and fin[[0, 1, 3, 4, 6]].all()
+    keep = torch.tensor([0, 1, 3, 4, 6], device=cuda)
+    torch.testing.assert_close(L[keep], hk.chol_batch_plain(Ks[keep]), rtol=2e-4, atol=5e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+def _chol_batch_entry(Ks, B: int, n: int, panels_only: int):
+    """csrc/chol_batch.cu's C entry on (B, n) and the buffer Ks → (cudaError, L)."""
+    from tpubq_torch.ops import _build
+
+    L = torch.empty_like(Ks)
+    err = _build.library().tpubq_chol_batch(Ks.data_ptr(), L.data_ptr(), B, n, panels_only,
+                                            torch.cuda.current_stream(Ks.device).cuda_stream)
+    torch.cuda.synchronize()
+    return err, L
+
+
+@pytest.mark.parametrize("n", [33, 44, 63, 64])
+def test_chol_batch_panels_of_32_in_the_warp_regime(cuda, n):
+    """Two panels of 32 columns (two diagonal blocks and a panel between)
+    where the warp regime would factor the matrix, forced through the C
+    entry's panels_only, as profile_main_path.py's ``chol_panels`` does."""
+    Ks = torch.as_tensor(_spd(np.random.RandomState(n), 6, n), device=cuda)
+    err, L = _chol_batch_entry(Ks, 6, n, 1)
+    assert err == 0
+    torch.testing.assert_close(L, hk.chol_batch_plain(Ks), rtol=2e-4, atol=5e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+def test_chol_batch_entry_takes_every_n_of_the_route(cuda):
+    """The C entry picks a launch for every n = 1 … 240, in its own regime
+    and in panels (panels_only), each against the twin; it refuses B = 0,
+    n = 0 and n = 241 before any launch."""
+    rng = np.random.RandomState(11)
+    for n in range(1, hk.CHOL_BATCH_MAX_N + 1):
+        Ks = torch.as_tensor(_spd(rng, 3, n), device=cuda)
+        ref = hk.chol_batch_plain(Ks)
+        for panels_only in (0, 1):
+            err, L = _chol_batch_entry(Ks, 3, n, panels_only)
+            assert err == 0, (n, panels_only)
+            torch.testing.assert_close(L, ref, rtol=2e-4, atol=5e-5)
+            assert bool((torch.triu(L, 1) == 0).all())
+    Ks = torch.zeros((1, 1, 1), device=cuda)
+    for B, n in ((0, 32), (3, 0), (3, hk.CHOL_BATCH_MAX_N + 1)):
+        assert _chol_batch_entry(Ks, B, n, 0)[0] != 0
+
+
+@pytest.mark.parametrize("n", [44, 48])
+def test_chol_batch_kernel_on_a_view_off_16_byte_alignment(cuda, n):
+    """A contiguous stack that starts 4 bytes past an allocation: the warp
+    regime reads its rows a float at a time there (float4 loads would fault)."""
+    B = 5
+    K = torch.as_tensor(_spd(np.random.RandomState(n), B, n), device=cuda)
+    Ks = torch.empty(1 + B * n * n, device=cuda)[1:].view(B, n, n)
+    Ks.copy_(K)
+    assert Ks.is_contiguous() and Ks.data_ptr() % 16 == 4
+    L = hk.chol_batch(Ks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(L, hk.chol_batch_plain(K), rtol=2e-4, atol=5e-5)
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.parametrize("B,n", [(200, 32), (128, 44), (200, 128), (4, 240)])
+def test_chol_batch_kernel_is_bit_identical_from_call_to_call(cuda, B, n):
+    Ks = torch.as_tensor(_spd(np.random.RandomState(5), B, n), device=cuda)
+    first = hk.chol_batch(Ks)
+    for _ in range(3):
+        assert torch.equal(hk.chol_batch(Ks), first)
+
+
 @pytest.mark.parametrize("near_duplicate", [False, True])
 def test_esm_fused_kernel_matches_plain(cuda, near_duplicate):
     bq = _testbed_bq(cuda, near_duplicate)
@@ -610,9 +715,13 @@ def _path_gram(rng, n, s, device, theta=(0.7, 0.8)):
     return hk.gaussian_gram(th, x, x) + s * s * torch.eye(n, device=device)
 
 
-@pytest.mark.parametrize("n1,n2,d", [(1036, 1036, 1), (1036, 1, 1), (300, 512, 3), (44, 10_000, 1)])
+@pytest.mark.parametrize("n1,n2,d", [(1036, 1036, 1), (1036, 1, 1), (300, 512, 3), (44, 10_000, 1),
+                                      (1, 1, 1), (1, 1037, 2), (33, 3, 3), (17, 5, 2), (1037, 1037, 1),
+                                      (5, 1037, 3), (40, 130, 2)])
 def test_gaussian_gram_kernel_matches_plain(cuda, n1, n2, d):
-    """At 1e-6 of h² (expf against torch.exp: a few float32 ulps)."""
+    """At 1e-6 of h² (expf against torch.exp: a few float32 ulps), at the
+    path's shapes and at ragged ones: n2 % 4 ≠ 0 (rows not 16-byte aligned:
+    scalar stores), one row, widths past a tile of 32 rows × 128 columns."""
     rng = np.random.RandomState(n1 + d)
     f32 = dict(dtype=torch.float32, device=cuda)
     theta = torch.as_tensor(np.concatenate([[0.7], rng.uniform(0.3, 1.0, d)]), **f32)
@@ -622,6 +731,19 @@ def test_gaussian_gram_kernel_matches_plain(cuda, n1, n2, d):
     torch.cuda.synchronize()
     assert hk.gaussian_gram.launches == before + 1
     assert float((K - hk.gaussian_gram_plain(theta, x1, x2)).abs().max()) <= 1e-6 * 0.49
+
+
+def test_gaussian_gram_launches_without_autograd_node_unless_a_gradient_is_needed(cuda):
+    rng = np.random.RandomState(4)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    theta, x1 = torch.tensor([0.9, 0.6], **f32), torch.as_tensor(rng.randn(30, 1), **f32)
+    K = hk.gaussian_gram(theta, x1, x1)
+    assert K.grad_fn is None and not K.requires_grad
+    th = theta.clone().requires_grad_(True)
+    Kg = hk.gaussian_gram(th, x1, x1)
+    assert Kg.grad_fn is not None and torch.equal(Kg.detach(), K)
+    with torch.no_grad():
+        assert hk.gaussian_gram(th, x1, x1).grad_fn is None
 
 
 def test_gaussian_gram_kernel_backward_matches_autograd_through_plain(cuda):

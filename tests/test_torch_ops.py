@@ -151,7 +151,7 @@ def test_jitter_cholesky_batched_selects_per_matrix(dtype):
     assert float(jit[3]) > float(jit[0])
 
 
-@pytest.mark.parametrize("B,N", [(5, 6), (9, 26), (3, 33)])
+@pytest.mark.parametrize("B,N", [(5, 6), (9, 26), (3, 33), (3, 64)])
 def test_chol_batch_plain_matches_pallas(B, N):
     rng = np.random.RandomState(7)
     Ks = _spd(rng, B, N)
@@ -188,6 +188,20 @@ def test_chol_batch_wrapper_checks_inputs():
         hk.chol_batch(torch.eye(3)[None, :, :2].contiguous())
     assert hk.chol_batch_supported(80) and hk.chol_batch_supported(240)
     assert not hk.chol_batch_supported(241)
+
+
+@pytest.mark.parametrize("n", [1, 17, 33, 64, 65, 240])
+def test_chol_batch_cpu_matches_float64_at_regime_edges(n):
+    """On the CPU the wrapper is its twin, at the edges of the kernel's
+    regimes (one panel up to 32 rows, a warp up to 64, panels of 32 up to
+    the route's 240): within rtol 2e-4 / atol 5e-5 of float64, exact zeros
+    above the diagonal, and NaN in the input's upper triangle never read."""
+    K = _spd(np.random.RandomState(n), 2, n)
+    dirty = np.where(np.triu(np.ones((n, n), bool), 1), np.nan, K).astype(np.float32)
+    L = np_(hk.chol_batch(torch.as_tensor(dirty)))
+    np.testing.assert_allclose(L, np.linalg.cholesky(K.astype(np.float64)), rtol=2e-4, atol=5e-5)
+    assert np.all(np.triu(L, 1) == 0.0)
+    assert hk.chol_batch_supported(n)
 
 
 def test_posdef_cholesky_batched_cpu_uses_library_with_nan_contract():

@@ -4,7 +4,7 @@
 // block by recursive doubling, the clamped column factorization of a
 // diagonal block, a 64 x 64 x 64 float32 FMA tile, and the flags and
 // ready-marked words through which the one-launch kernels' work items wait
-// for each other. None of chol_columns.cuh's helpers is used here.
+// for each other.
 
 #pragma once
 

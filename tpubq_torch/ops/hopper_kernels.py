@@ -6,7 +6,10 @@ Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
   ``esm_fused``: the fused per-candidate ESM scorer behind ``choose_next``,
   the two quadratic forms as tiled products (two launches).
 * ``chol_batch`` (``csrc/chol_batch.cu``) ← ``cholesky_batch_major``: the
-  batched float32 Cholesky behind ``marginalize``.
+  batched float32 Cholesky behind ``marginalize`` and batched refits, n ≤ 240:
+  every diagonal block of up to 64 rows factored by one warp in registers;
+  up to 32 rows a block per matrix in shared memory, then a warp per matrix
+  up to 64, then panels of 32 columns (the C entry picks the regime).
 * ``mll_grad_batched`` (``csrc/mll_grad.cu``) ← ``mll_grad_batched``: the
   masked log marginal likelihood and its (h, w) gradient for a batch of
   hyperparameter rows, behind the fused multi-restart fit, at any n (one
@@ -17,7 +20,8 @@ Nine kernels, each the port of a TPU Pallas kernel of the JAX package:
   halves of the fleet scorer behind ``BQFleet.choose_next``, B problems × G
   shared grid points per launch.
 * ``gaussian_gram`` (``csrc/gaussian_gram.cu``) ← ``gaussian_gram``: the
-  gaussian Gram of one kernel-parameter vector, behind ``kernels.gaussian_K``.
+  gaussian Gram of one kernel-parameter vector, behind ``kernels.gaussian_K``;
+  a call that needs no gradient launches without an autograd node.
 * ``cholesky_blocked`` (``csrc/chol_blocked.cu``) ← ``cholesky_blocked`` and
   ``tri_solve_blocked`` (``csrc/tri_solve_blocked.cu``) ←
   ``tri_solve_blocked``: the factor and the triangular solves of one large
@@ -42,6 +46,7 @@ time: the library is built by ``_build`` on the first launch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -85,7 +90,8 @@ __all__ = [
 
 #: Shared memory one block may use on H100 (227 KB).
 SMEM_LIMIT = 232448
-_CHOL_THREADS = 256
+#: Largest n of ``chol_batch``; larger stacks go to ``cholesky_batched``.
+CHOL_BATCH_MAX_N = 240
 # mll_grad: one block per row up to this n, tiles above. A block of NP 128
 # lost to the tiles at n = 96 and 128 (PERF.md §6, PR 7), so none is built.
 _MLL_SMALL_N = 64
@@ -122,10 +128,10 @@ def esm_fused_supported(NP: int, NP2: int, d: int) -> bool:
 
 
 def chol_batch_supported(n: int) -> bool:
-    """Whether one n × n float32 matrix (plus its n pivots) fits the 227 KB of
-    shared memory of one block: n ≤ 240. Larger matrices go to
+    """Whether ``chol_batch`` takes n × n matrices: n ≤ 240, where the n
+    rows fit one block's 227 KB of shared memory. Larger matrices go to
     ``cholesky_batched``."""
-    return 4 * (n * n + n) <= SMEM_LIMIT
+    return n <= CHOL_BATCH_MAX_N
 
 
 def mll_grad_launches(n: int) -> int:
@@ -150,6 +156,16 @@ def kernel_route(*tensors: torch.Tensor) -> bool:
 
 def _stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _device_of(t: torch.Tensor):
+    """The CUDA device context of a launch on ``t``'s card: a no-op where that
+    card is current already. Every wrapper enters it: on an H100 host,
+    ``torch.cuda.device`` took 3.8–5.0 µs a call and this 1.4–2.3
+    (``profile_main_path.py --kernels``' ``device_context``, PERF.md §6)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def _check(err: int, name: str) -> None:
@@ -255,7 +271,7 @@ def esm_fused(params, grid, xsc, msc, Kinv, uz, alpha, xs, ms, Kinv_tl, alpha_tl
     if max(tiles) > 65535:
         raise ValueError(f"esm_fused: NP={NP}, NP2={NP2}: more than 65,535 column tiles")
     Gp = (G + _ESM_TILE - 1) // _ESM_TILE * _ESM_TILE
-    with torch.cuda.device(grid.device):
+    with _device_of(grid):
         part = torch.empty((sum(f * t for f, t in zip(_ESM_FIELDS, tiles)), Gp), dtype=torch.float32,
                            device=grid.device)
         err = lib.tpubq_esm_fused(*ptrs, part.data_ptr(), out.data_ptr(), _stream_ptr(grid))
@@ -307,7 +323,8 @@ def chol_batch(Ks: torch.Tensor) -> torch.Tensor:
 
     The pivot is not clamped: a matrix that is not positive definite gets NaN
     in its own factor only. Requires ``chol_batch_supported(n)``; only the
-    lower triangle is read.
+    lower triangle is read. One launch, in the regime that
+    ``csrc/chol_batch.cu``'s entry point picks from n.
     """
     if Ks.ndim != 3 or Ks.shape[1] != Ks.shape[2]:
         raise ValueError(f"chol_batch needs a (B, n, n) stack, got {tuple(Ks.shape)}")
@@ -318,17 +335,15 @@ def chol_batch(Ks: torch.Tensor) -> torch.Tensor:
     if Ks.device.type != "cuda":
         raise ValueError(f"chol_batch: unsupported device {Ks.device}")
     if not chol_batch_supported(n):
-        raise ValueError(f"chol_batch: n={n} exceeds the shared-memory budget (n <= 240)")
+        raise ValueError(f"chol_batch: n={n} exceeds the shared-memory budget (n <= {CHOL_BATCH_MAX_N})")
     L = torch.empty_like(Ks)
     if B == 0 or n == 0:
         return L
     from tpubq_torch.ops import _build
 
     lib = _build.library()
-    with torch.cuda.device(Ks.device):
-        err = lib.tpubq_chol_batch(
-            Ks.data_ptr(), L.data_ptr(), B, n, _CHOL_THREADS, 4 * (n * n + n), _stream_ptr(Ks)
-        )
+    with _device_of(Ks):
+        err = lib.tpubq_chol_batch(Ks.data_ptr(), L.data_ptr(), B, n, 0, _stream_ptr(Ks))
         chol_batch.launches += 1
     _check(err, "chol_batch")
     return L
@@ -447,7 +462,7 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
         lib.tpubq_mll_grad_scratch(B, n, ctypes.byref(floats), ctypes.byref(ints))
         scratch = torch.empty((floats.value,), dtype=torch.float32, device=x.device)
         sync = torch.zeros((ints.value,), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
+    with _device_of(x):
         err = lib.tpubq_mll_grad(
             thetas.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
             float(jitter), B, n, B // P, n if x.ndim == 3 else 0, 1 if s.ndim else 0,
@@ -646,7 +661,7 @@ def esm_fleet_l(params, w2inv, grid, xsc, msc, Kinv, uz, alpha, thresh: float, l
 
     lib = _build.library()
     threads, smem = _fleet_launch_config(NP, d)
-    with torch.cuda.device(grid.device):
+    with _device_of(grid):
         err = lib.tpubq_esm_fleet_l(
             params.data_ptr(), w2inv.data_ptr(), grid.data_ptr(), G, d, xsc.data_ptr(),
             msc.data_ptr(), Kinv.data_ptr(), uz.data_ptr(), alpha.data_ptr(), B, NP,
@@ -687,7 +702,7 @@ def esm_fleet_tl(h2, w2inv, grid, xs, ms, Kinv, alpha):
 
     lib = _build.library()
     threads, smem = _fleet_launch_config(NP2, d)
-    with torch.cuda.device(grid.device):
+    with _device_of(grid):
         err = lib.tpubq_esm_fleet_tl(
             h2.data_ptr(), w2inv.data_ptr(), grid.data_ptr(), G, d, xs.data_ptr(), ms.data_ptr(),
             Kinv.data_ptr(), alpha.data_ptr(), B, NP2, threads, smem, m_a.data_ptr(),
@@ -728,6 +743,10 @@ def gaussian_gram_vjp(theta, x1, x2, K, G):
     return torch.cat([g_h[None], g_w]), -gx.sum(1), gx.sum(0)
 
 
+#: Columns of one launch of ``gaussian_gram`` (65,535 tiles of 128).
+_GRAM_MAX_COLS = 128 * 65535
+
+
 def _gaussian_gram_launch(theta, x1, x2):
     n1, d = x1.shape
     n2 = x2.shape[0]
@@ -737,7 +756,7 @@ def _gaussian_gram_launch(theta, x1, x2):
     from tpubq_torch.ops import _build
 
     lib = _build.library()
-    with torch.cuda.device(x1.device):
+    with _device_of(x1):
         err = lib.tpubq_gaussian_gram(theta.data_ptr(), x1.data_ptr(), x2.data_ptr(), n1, n2, d,
                                       K.data_ptr(), _stream_ptr(x1))
         gaussian_gram.launches += 1
@@ -768,8 +787,9 @@ def gaussian_gram(theta, x1, x2):
     """Gaussian Gram of one parameter vector → (n1, n2).
 
     Shapes: ``theta`` (1 + d,) = [h, w_1..w_d]; ``x1`` (n1, d); ``x2``
-    (n2, d); float32, contiguous, one device; n1 ≤ 524,280 rows per launch.
-    Differentiable in all three (closed-form backward).
+    (n2, d); float32, contiguous, one device; n2 ≤ 8,388,480 columns per
+    launch. Differentiable in all three (closed-form backward); a call in
+    which no input needs a gradient launches without the autograd node.
     """
     if x1.ndim != 2 or x2.ndim != 2 or x1.shape[1] != x2.shape[1]:
         raise ValueError(f"gaussian_gram needs (n1, d) and (n2, d), got {tuple(x1.shape)}, {tuple(x2.shape)}")
@@ -781,9 +801,11 @@ def gaussian_gram(theta, x1, x2):
         return gaussian_gram_plain(theta, x1, x2)
     if x1.device.type != "cuda":
         raise ValueError(f"gaussian_gram: unsupported device {x1.device}")
-    if x1.shape[0] > 8 * 65535:
-        raise ValueError(f"gaussian_gram: at most {8 * 65535} rows per launch, got {x1.shape[0]}")
-    return _GaussianGram.apply(theta, x1, x2)
+    if x2.shape[0] > _GRAM_MAX_COLS:
+        raise ValueError(f"gaussian_gram: at most {_GRAM_MAX_COLS} columns per launch, got {x2.shape[0]}")
+    if torch.is_grad_enabled() and (theta.requires_grad or x1.requires_grad or x2.requires_grad):
+        return _GaussianGram.apply(theta, x1, x2)
+    return _gaussian_gram_launch(theta, x1, x2)
 
 
 gaussian_gram.launches = 0
@@ -952,7 +974,7 @@ def cholesky_blocked(A: torch.Tensor) -> torch.Tensor:
     Ps = torch.empty((max(T - 1, 1), CHOL_TILE, CHOL_TILE + 4), dtype=torch.float32, device=A.device)
     sync = torch.zeros((2 + T * (T + 1) // 2 + T,), dtype=torch.int32, device=A.device)
     lib = _build.library()
-    with torch.cuda.device(A.device):
+    with _device_of(A):
         err = lib.tpubq_chol_blocked(A.data_ptr(), L.data_ptr(), Yt.data_ptr(), Ps.data_ptr(), sync.data_ptr(), N,
                                      _stream_ptr(A))
         cholesky_blocked.launches += 1
@@ -1019,7 +1041,7 @@ def tri_solve_blocked(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
     sync = torch.zeros((_tri_solve_sync_ints(N, M),), dtype=torch.int32, device=L.device)
     lib = _build.library()
-    with torch.cuda.device(L.device):
+    with _device_of(L):
         err = lib.tpubq_tri_solve_blocked(L.data_ptr(), R.data_ptr(), X.data_ptr(), sync.data_ptr(), N, M,
                                           _stream_ptr(L))
         tri_solve_blocked.launches += 1
@@ -1064,7 +1086,7 @@ def cholesky_batched(Ks: torch.Tensor) -> torch.Tensor:
 
     launches = ctypes.c_int(0)
     lib = _build.library()
-    with torch.cuda.device(Ks.device):
+    with _device_of(Ks):
         err = lib.tpubq_chol_batched(Ks.data_ptr(), L.data_ptr(), flags.data_ptr(), Yt.data_ptr(), PT.data_ptr(),
                                      ldp, B, n, ctypes.byref(launches), _stream_ptr(Ks))
         cholesky_batched.launches += launches.value

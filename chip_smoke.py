@@ -41,6 +41,20 @@ before the final line):
               problems, against single BQs on the card; esm_fleet_l and
               esm_fleet_tl must launch exactly once per choose_next, esm_fused
               never, mll_grad exactly 2·(n_iter + 1) times for the whole fleet.
+4b. marg   — hyper-marginalization on the card: the single testbed's
+              BQ.sample_hypers(n=100) with 1 and 4 chains and with the joint
+              params (h, w, h_l, w_l), marginalize on θ_tl and on joint rows
+              the float64 CPU port drew (held to its float64 estimates),
+              BQ.marginalize, choose_next(grid, n=10) (held like the main
+              path's picks); the fleet of phase 4 at its initial hypers:
+              BQFleet.sample_hypers(n=100), marginalize on the float64 CPU
+              fleet's rows (held to its estimates), BQFleet.marginalize,
+              choose_next(grid, n=10) (the fleet kernels on the flattened
+              fleet of 64 × 10 re-anchored states held to their plain
+              versions, the picks to float64 by the fleet path's rule) and
+              run_active_loop(n=10) for 3 steps; the sampler's host reads
+              (at most one per lock-step iteration) and the exact launches
+              of chol_batch, esm_fused and the fleet kernels per call.
 5. large N  — the large-max_obs path (benchmarks/large_n.py's recipe) at
               max_obs 128, 256, 512 and 1024: init_state → Z moments →
               run_active_loop (8 steps, incremental False, True, "auto") →
@@ -353,8 +367,10 @@ def _gram_stack(B, n, live, rng, dev, rung=1e-4):
 
 #: chol_batch's stacks on the paths (B, n, live rows): marginalize(100) at
 #: max_obs 32, the fleet's two-rung refits at B = 64 (log-GP 32 rows, linear
-#: GP 44), marginalize at max_obs 128, and the card tests' (256, 80).
-CHOL_PATH_SHAPES = ((200, 32, 21), (200, 44, 33), (128, 32, 21), (128, 44, 33), (200, 128, 116), (256, 80, 61))
+#: GP 44), marginalize at max_obs 128, the card tests' (256, 80), and the
+#: fleet's marginalize at B = 64 over 100 rows (both rungs: 12,800 matrices).
+CHOL_PATH_SHAPES = ((200, 32, 21), (200, 44, 33), (128, 32, 21), (128, 44, 33), (200, 128, 116), (256, 80, 61),
+                    (12800, 32, 21), (12800, 44, 33))
 #: ... and at the edges of its regimes (picked by csrc/chol_batch.cu) and of
 #: its padded row stride in shared memory (238, the last n it pads).
 CHOL_EDGE_SHAPES = tuple((8, n, max(1, 3 * n // 4)) for n in (1, 15, 16, 17, 31, 33, 48, 49, 63, 64, 65, 140, 200, 238, 240))
@@ -824,7 +840,9 @@ def fleet_vs_plain(states, opts, grid, max_flips: int = MAX_FLEET_FLIPS, skip=()
     same = ~flip
     errs, own, held = {}, {}, {}
     for name in out:
-        scale = ref64[name][keep].abs().amax(1)
+        # a problem whose output is 0 everywhere (m_a under a vanishing
+        # length-scale) is held to 0 exactly
+        scale = ref64[name][keep].abs().amax(1).clamp_min(torch.finfo(torch.float64).tiny)
         tl_side = name in ("m_a", "c_a")  # the log-GP outputs have no mask to flip on
         ok = torch.ones_like(same[keep]) if tl_side else same[keep]
         e = ((out[name][keep] - ref[name][keep]).abs() * ok).amax(1).double() / scale
@@ -1190,6 +1208,253 @@ def fleet_path(dev) -> dict:
     return {"fleet": fleet, "launches": launches, "state": states[3], "opts": opts,
             "l_max_abs_err": max(max(c["max_abs_err"][n] for n in ("A", "B")) for c in cases),
             "tl_max_abs_err": max(max(c["max_abs_err"][n] for n in ("m_a", "c_a")) for c in cases)}
+
+
+# ---------------------------------------------------------------------------
+# hyper-marginalization: the lock-step slice sampler, marginalize and the
+# marginalized choose_next, single and fleet
+# ---------------------------------------------------------------------------
+
+MARG_N, MARG_CHOOSE_N, MARG_LOOP_STEPS = 100, 10, 3
+JOINT = ("h", "w", "h_l", "w_l")
+MARG_WRAPPERS = ("esm_fused", "chol_batch", "gaussian_gram", "cholesky_blocked", "tri_solve_blocked",
+                 "cholesky_batched", "esm_fleet_l", "esm_fleet_tl", "mll_grad_batched")
+
+
+def marg_counts() -> dict:
+    from tpubq_torch.models import marginalize as margm
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    return {**{k: getattr(hk, k).launches for k in MARG_WRAPPERS},
+            "host_reads": margm.slice_sample.host_reads, "evaluations": margm.slice_sample.evaluations}
+
+
+def marg_call(fn, log: dict, name: str):
+    """Run ``fn`` once on the card, ending in a synchronize; record its wall
+    seconds, the launches of every kernel, the sampler's host reads and its
+    log-density evaluations (one each per lock-step iteration, and one
+    evaluation for the starting rows) under ``log[name]``."""
+    import torch
+
+    c0 = marg_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    log[name] = dict(seconds=time.perf_counter() - t0, **delta(c0, marg_counts()))
+    return out
+
+
+def marg_pick_gaps(esm32, deg32, esm64, near, idx):
+    """``fleet_pick_gaps``' rule on hyper-averaged scores, (B, G) each: the
+    pick (grid index ``idx`` (B,)) is held to the float64 optimum over the
+    points the float32 scorer resolves under every row (``deg32`` False) away
+    from the observations (``near`` False) → (gap, err, resolved), NaN where
+    the pick is not such a point."""
+    import torch
+
+    ok = ~deg32 & ~near
+    best = torch.where(ok, esm64, torch.full_like(esm64, -math.inf)).amax(1)
+    at = esm64.gather(1, idx[:, None])[:, 0]
+    err = torch.where(ok, (esm32 - esm64).abs() / esm64.abs(), torch.zeros_like(esm64)).amax(1)
+    held = ok.gather(1, idx[:, None])[:, 0]
+    nan = torch.full_like(best, math.nan)
+    return torch.where(held, (best - at) / best, nan), torch.where(held, err, nan), ok.sum(1)
+
+
+def _z_var_gh(state, opts):
+    """V[Z] by the float32 path's estimator (the Gauss–Hermite bilinear form),
+    evaluated in the state's dtype."""
+    import torch
+
+    from tpubq_torch.models import bq as bqm
+
+    return torch.clamp(bqm._z_var_gh_terms(state, opts)[0], min=0.0)
+
+
+def marg_vs_f64(zm32, zv32, zm64, zv64, zv64_gh) -> dict:
+    """Marginalized estimates on the card (float32) against the float64 CPU
+    path on the same rows: E[Z] per row; V[Z] (mean over each problem's
+    rows) against the float64 evaluation of the float32 path's own
+    estimator, the Gauss–Hermite form, and, reported beside it, against the
+    closed form, from which the quadrature departs at rows whose log-GP
+    length-scale it cannot resolve (``rows_gh_off_closed_form``: the float64
+    quadrature more than 5e-2 off the closed form)."""
+    zm32, zv32 = zm32.double().cpu(), zv32.double().cpu()
+    mean_rel = lambda a, b: float((a.mean(-1) / b.mean(-1) - 1.0).abs().max())  # noqa: E731
+    return dict(Z_mean_max_rel=float(((zm32 - zm64) / zm64).abs().max()), Z_var_mean_rel=mean_rel(zv32, zv64_gh),
+                Z_var_mean_rel_closed_form=mean_rel(zv32, zv64),
+                rows_gh_off_closed_form=int(((zv64_gh / zv64 - 1.0).abs() > ZVAR_RTOL).sum()),
+                finite=bool(np.isfinite(zm32.numpy()).all() and np.isfinite(zv32.numpy()).all()))
+
+
+def marginalize_path(dev) -> dict:
+    """Hyper-marginalization through the facades on the card (see the module
+    docstring, phase 4b): the single problem's samplers (θ_tl with 1 and 4
+    chains, joint rows), marginalize and choose_next(n = 10); the fleet's
+    sampler, marginalize, choose_next(n = 10) and a marginalized loop at
+    B = 64, G = 10⁴. Estimates on rows the float64 CPU port drew are held to
+    the float64 CPU path; picks by ``marg_pick_gaps``; launches and host reads
+    are counted per call."""
+    import torch
+
+    from tpubq_torch import BQFleet
+    from tpubq_torch.models import acquire, batched, bq as bqm, marginalize as margm
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    grid = np.linspace(-4.0, 4.0, G)
+    grid64 = torch.as_tensor(grid, dtype=torch.float64)
+    grid_dev = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    funs64 = (bqm.Z_mean, bqm.Z_var, _z_var_gh)  # float64, beside the float32 path's V[Z] estimator
+    calls = {}
+    zero_counts()
+    margm.slice_sample.host_reads = margm.slice_sample.evaluations = 0
+    total0 = marg_counts()
+
+    # ---- the single problem (the testbed at its initial hypers)
+    x = testbed_x(False)
+    bq, bq64 = make_bq(x, dev, "float32", s=S_MAIN), make_bq(x, "cpu", "float64", s=S_MAIN)
+    opts, opts64 = bq.options, bq64.options
+    th_c1 = marg_call(lambda: bq.sample_hypers(n=MARG_N, seed=21), calls, "sample_hypers_c1")
+    th_c4 = marg_call(lambda: bq.sample_hypers(n=MARG_N, seed=22, n_chains=4), calls, "sample_hypers_c4")
+    th_j = marg_call(lambda: bq.sample_hypers(params=JOINT, n=MARG_N, seed=23), calls, "sample_hypers_joint")
+    zm_fac, zv_fac = marg_call(lambda: bq.marginalize(n=MARG_N, seed=24), calls, "marginalize_sampled")
+    rows64 = {"theta_tl": torch.as_tensor(bq64.sample_hypers(n=MARG_N, seed=25)),
+              "joint": torch.as_tensor(bq64.sample_hypers(params=JOINT, n=MARG_N, seed=26))}
+    single_marg = {}
+    for kind, r64 in rows64.items():
+        zm32, zv32 = marg_call(lambda: margm.marginalize(bq.state, opts, r64.to(dev, torch.float32)), calls,
+                               f"marginalize_{kind}")
+        single_marg[kind] = marg_vs_f64(zm32, zv32, *margm.marginalize(bq64.state, opts64, r64, funs64))
+    x_pick = marg_call(lambda: bq.choose_next(grid, n=MARG_CHOOSE_N, seed=27), calls, "choose_next_n10")
+    torch.cuda.synchronize()
+
+    # ---- the fleet (the fleet path's recipe at its initial hypers)
+    xs, ls, mus = fleet_data(FLEET_B, FLEET_N_OBS)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2,
+              max_obs=FLEET_MAX_OBS, s=S_MAIN)
+    fleet = BQFleet(xs, ls, device=dev, dtype="float32", **kw)
+    fleet64 = BQFleet(xs, ls, device="cpu", dtype="float64", **kw)
+    fth = marg_call(lambda: fleet.sample_hypers(n=MARG_N, seed=31), calls, "fleet_sample_hypers")
+    fzm_fac, fzv_fac = marg_call(lambda: fleet.marginalize(n=MARG_N, seed=32), calls, "fleet_marginalize_sampled")
+    frows64 = torch.as_tensor(fleet64.sample_hypers(n=MARG_N, seed=33))
+    fzm32, fzv32 = marg_call(lambda: batched.marginalize_batch(fleet.states, fleet.options,
+                                                               frows64.to(dev, torch.float32)),
+                             calls, "fleet_marginalize")
+    fleet_marg = marg_vs_f64(fzm32, fzv32, *batched.marginalize_batch(fleet64.states, fleet64.options, frows64,
+                                                                       funs64))
+    fx_pick = marg_call(lambda: fleet.choose_next(grid, n=MARG_CHOOSE_N, seed=34), calls, "fleet_choose_next_n10")
+    loop_fleet = BQFleet.from_states(fleet.states, fleet.options)
+    lik = lambda x: torch.exp(-0.5 * ((x[0] - MU_L) / SIG_L) ** 2) / (SIG_L * math.sqrt(2.0 * math.pi))  # noqa: E731
+    loop_zm, loop_zv = marg_call(lambda: loop_fleet.run_active_loop(lik, grid, MARG_LOOP_STEPS, n=MARG_CHOOSE_N,
+                                                                    seed=35), calls, "fleet_run_active_loop_n10")
+    total = delta(total0, marg_counts())
+
+    # ---- everything below compares; none of it counts as the path's launches
+    # the single pick: the same rows as choose_next drew (same seed, same
+    # sampler), scored by the plain twin in float32 and by the float64 path
+    rows = torch.as_tensor(bq.sample_hypers(n=MARG_CHOOSE_N, seed=27), device=dev)
+    esm32 = torch.zeros(G, dtype=torch.float64)
+    deg32 = torch.zeros(G, dtype=torch.bool)
+    for r in rows:
+        st_r = bqm.apply_hyper_sample(bq.state, opts, r)
+        esm32 += hk.esm_fused_plain(*acquire.esm_fused_inputs(st_r, opts, grid_dev[:, None])).double().cpu()
+        deg32 |= acquire._esm_affine_terms(st_r, opts, grid_dev[:, None])[2].cpu()
+    _, esm64 = acquire.choose_next(bq64.state, opts64, grid64, rows.double().cpu())
+    near = ((grid64[:, None] - bq64.state.x_s[None, :, 0]).abs() < opts.candidate_thresh) & bq64.state.obs_mask
+    idx = (grid64 - x_pick).abs().argmin()
+    gap, err, n_ok = marg_pick_gaps((esm32 / len(rows))[None], deg32[None], esm64[None], near.any(1)[None],
+                                    idx[None])
+
+    # the fleet's picks: its rows, the kernels held to their plain twins on
+    # the flattened fleet of B·n re-anchored states, the average held to float64
+    frows = torch.as_tensor(fleet.sample_hypers(n=MARG_CHOOSE_N, seed=34), device=dev)
+    B, S = frows.shape[:2]
+    st_f = bqm.apply_hyper_sample(fleet.states, fleet.options, frows)
+    flat = bqm.tree_map(lambda a: a.expand(B, S, *a.shape[2:]).reshape(B * S, *a.shape[2:]), st_f)
+    flat_case = fleet_vs_plain(flat, fleet.options, grid_dev[:, None], max_flips=MAX_FLEET_FLIPS * S,
+                               step="choose_next_n10")
+    fesm32, fdeg32, _ = fleet_scores_plain(flat, fleet.options, grid_dev[:, None])
+    fesm32 = fesm32.double().cpu().reshape(B, S, G).mean(1)
+    fdeg32 = fdeg32.cpu().reshape(B, S, G).any(1)
+    fesm64 = batched._marg_scores(fleet64.states, fleet64.options, grid64, frows.double().cpu())
+    dist = (grid_dev[None, :, None] - fleet.states.x_s[:, None, :, 0]).abs()
+    fnear = ((dist < fleet.options.candidate_thresh) & fleet.states.obs_mask[:, None, :]).any(-1).cpu()
+    fidx = (grid64[None, :] - torch.as_tensor(fx_pick[:, 0], dtype=torch.float64)[:, None]).abs().argmin(1)
+    fgap, ferr, fn_ok = marg_pick_gaps(fesm32, fdeg32, fesm64, fnear, fidx)
+    fgap_ok = torch.isnan(fgap) | (fgap <= torch.clamp(2.0 * ferr, min=ESM_ARGMAX_RTOL))
+
+    # exact launches: a log density is one chol_batch stack of all rows (θ_tl)
+    # or two (joint: the log-GP's fixed-jitter fit, the linear GP's MLL)
+    NP, NP2 = opts.max_nsc, opts.max_obs
+    chunks = -(-MARG_CHOOSE_N // batched.marg_chunk(FLEET_B, MARG_CHOOSE_N, G, fleet.options))
+    want = {
+        "sample_hypers_c1": dict(chol_batch=calls["sample_hypers_c1"]["evaluations"], gaussian_gram=0),
+        "sample_hypers_c4": dict(chol_batch=calls["sample_hypers_c4"]["evaluations"], gaussian_gram=0),
+        "sample_hypers_joint": dict(chol_batch=2 * calls["sample_hypers_joint"]["evaluations"], gaussian_gram=0),
+        "marginalize_theta_tl": marginalize_counts(opts),
+        "marginalize_joint": dict(chol_batch=2, gaussian_gram=0, cholesky_blocked=0, tri_solve_blocked=0),
+        "choose_next_n10": dict(chol_batch=calls["choose_next_n10"]["evaluations"],
+                                esm_fused=MARG_CHOOSE_N * hk.esm_fused_launches(NP, NP2, 1)),
+        "fleet_sample_hypers": dict(chol_batch=calls["fleet_sample_hypers"]["evaluations"], gaussian_gram=0),
+        "fleet_marginalize": dict(chol_batch=2, gaussian_gram=0, esm_fleet_l=0),
+        "fleet_choose_next_n10": dict(chol_batch=calls["fleet_choose_next_n10"]["evaluations"] + 2 * chunks,
+                                      esm_fleet_l=chunks, esm_fleet_tl=chunks, esm_fused=0),
+        "fleet_run_active_loop_n10": dict(
+            chol_batch=calls["fleet_run_active_loop_n10"]["evaluations"] + MARG_LOOP_STEPS * (2 * chunks + 2),
+            esm_fleet_l=MARG_LOOP_STEPS * chunks, esm_fleet_tl=MARG_LOOP_STEPS * chunks),
+    }
+    launch_failures = {k: {q: (calls[k][q], v) for q, v in w.items() if calls[k][q] != v}
+                       for k, w in want.items() if any(calls[k][q] != v for q, v in w.items())}
+    sampler_calls = [k for k in calls if calls[k]["evaluations"]]
+    res = dict(
+        B=FLEET_B, G=G, n=MARG_N, choose_n=MARG_CHOOSE_N, s=S_MAIN, calls=calls, launches=total,
+        sampler_host_reads_per_call={k: calls[k]["host_reads"] for k in sampler_calls},
+        sampler_iterations_per_call={k: calls[k]["evaluations"] - 1 for k in sampler_calls},
+        draws=dict(c1=[list(th_c1.shape), float(th_c1.min()), float(th_c1.max())],
+                   c4=[list(th_c4.shape), float(th_c4.min()), float(th_c4.max())],
+                   joint=[list(th_j.shape), float(th_j.min()), float(th_j.max())],
+                   fleet=[list(fth.shape), float(fth.min()), float(fth.max())]),
+        single_marginalize=single_marg, pick=x_pick, pick_gap=float(gap[0]), esm_f32_err=float(err[0]),
+        resolved_points=int(n_ok[0]),
+        fleet_marginalize=fleet_marg,
+        fleet_pick_gap_max=float(torch.nan_to_num(fgap, nan=0.0).max()),
+        fleet_picks_on_the_plateau=int(torch.isnan(fgap).sum()), fleet_resolved_points_min=int(fn_ok.min()),
+        fleet_choose_kernels_vs_plain={k: flat_case[k] for k in ("norm_err", "plain_f32_vs_f64", "degenerate_flips",
+                                                                   "failures")},
+        loop_Z_var_first_last=[loop_zv[0].tolist()[:4], loop_zv[-1].tolist()[:4]],
+        launch_failures=launch_failures,
+        tol=dict(Z_mean=MARG_MEAN_RTOL, Z_var=ZVAR_RTOL, esm_argmax=ESM_ARGMAX_RTOL),
+    )
+    emit("marginalize_path", **res)
+    finite = lambda a: bool(np.all(np.isfinite(np.asarray(a))))  # noqa: E731
+    for name, th in (("c1", th_c1), ("c4", th_c4), ("joint", th_j), ("fleet", fth)):
+        check(finite(th) and bool(np.all(th > 0)), f"sampled hypers finite and positive ({name})")
+    check(th_c1.shape == th_c4.shape == (MARG_N, 2) and th_j.shape == (MARG_N, 4) and fth.shape == (FLEET_B, MARG_N, 2),
+          "sampled hypers' shapes")
+    check(all(calls[k]["host_reads"] <= calls[k]["evaluations"] - 1 for k in sampler_calls),
+          f"at most one host read per lock-step iteration ({res['sampler_host_reads_per_call']})")
+    check(not launch_failures, f"exact launches on the marginalize path: {launch_failures}")
+    check(all(total[k] > 0 for k in ("chol_batch", "esm_fused", "esm_fleet_l", "esm_fleet_tl")),
+          f"every kernel of the marginalize path launched ({total})")
+    for kind, m in single_marg.items():
+        check(m["finite"], f"marginalize finite ({kind})")
+        check(m["Z_mean_max_rel"] <= MARG_MEAN_RTOL, f"marginalized E[Z] f32 card vs f64 CPU ({kind}: {m})")
+        check(m["Z_var_mean_rel"] <= ZVAR_RTOL, f"marginalized mean V[Z] f32 card vs f64 CPU ({kind}: {m})")
+    check(finite(zm_fac) and finite(zv_fac) and finite(fzm_fac) and finite(fzv_fac), "BQ / BQFleet.marginalize finite")
+    check(fleet_marg["finite"], "fleet marginalize finite")
+    check(fleet_marg["Z_mean_max_rel"] <= MARG_MEAN_RTOL, f"fleet marginalized E[Z] f32 card vs f64 CPU ({fleet_marg})")
+    check(fleet_marg["Z_var_mean_rel"] <= ZVAR_RTOL, f"fleet marginalized mean V[Z] f32 card vs f64 CPU ({fleet_marg})")
+    check(bool(torch.isnan(gap).all() or gap[0] <= max(ESM_ARGMAX_RTOL, 2.0 * float(err[0]))),
+          f"the marginalized pick is the f64 optimum over the resolved points ({res['pick_gap']})")
+    check(int(n_ok[0]) > 0, "the f32 scorer resolves points under every row")
+    check(bool(fgap_ok.all()), "each marginalized fleet pick is the f64 optimum over the resolved points")
+    check(not flat_case["failures"], f"fleet kernels on the re-anchored fleet: {flat_case['failures']}")
+    check(finite(loop_zm) and finite(loop_zv) and loop_zm.shape == (MARG_LOOP_STEPS, FLEET_B),
+          "the marginalized fleet loop's moments")
+    check(bool(np.all(loop_fleet.ns == FLEET_N_OBS + MARG_LOOP_STEPS)), "the marginalized loop added its observations")
+    return {"launches": total, "host_reads": res["sampler_host_reads_per_call"],
+            "calls": calls, "l_max_abs_err": max(flat_case["max_abs_err"][n] for n in ("A", "B")),
+            "tl_max_abs_err": max(flat_case["max_abs_err"][n] for n in ("m_a", "c_a"))}
 
 
 # ---------------------------------------------------------------------------
@@ -2239,6 +2504,7 @@ def main() -> int:
     fleet_precision(dev)
     mp = main_path(dev)
     fp = fleet_path(dev)
+    mg = marginalize_path(dev)
     lp = large_n_path(dev)
     lf = large_fit(dev)
     esm_size_routes(dev)
@@ -2303,10 +2569,15 @@ def main() -> int:
              shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
     kernels += large_kernel_entries(lp, lk, lt)
+    for k in kernels:  # launches on the marginalize path (phase 4b)
+        k["marg_launches"] = mg["launches"][k["name"]]
     by_name = {k["name"]: k for k in kernels}
     by_name["chol_batch"].update(fleet_launches=fp["launches"]["chol_batch"],
                                  large_n_launches=lp["launches"]["chol_batch"],
                                  **{f"at_{k}": v for k, v in t["chol_batch"].items() if k != f"{cB}x{cn}x{cn}"})
+    by_name["chol_batch"].update(marg_sampler_host_reads_per_call=mg["host_reads"])
+    for name, key in (("esm_fleet_l", "l_max_abs_err"), ("esm_fleet_tl", "tl_max_abs_err")):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], mg[key])
     by_name["gaussian_gram"].update(single_launches=mp["launches"]["gaussian_gram"],
                                     fleet_launches=fp["launches"]["gaussian_gram"])
     emit("elapsed", seconds=time.perf_counter() - t_start, limit_seconds=1200)

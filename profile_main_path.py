@@ -14,11 +14,18 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 * ``step``       — one choose_next over the grid plus one add_observation;
 * ``marginalize`` — marginalize over 100 given θ_tl samples;
 * ``sampler``    — sample_hypers(n=20), the slice sampler alone;
+* ``sampler_chains_c1`` / ``sampler_chains_c4`` — sample_hypers(n=100) with
+  one chain and with four chains in lock step;
 * ``fleet_fit``  — ``BQFleet.fit`` of 64 problems (64 × 10 restart rows per
   mll_grad launch), from the initial fleet state;
 * ``fleet_step`` — one ``BQFleet.choose_next`` over the grid plus one
   ``add_observation`` at B = 64 (the fleet of chip_smoke.py, after the fit and
   three steps);
+* ``fleet_sampler`` — ``BQFleet.sample_hypers(n=100)`` at B = 64 (one
+  lock-step sampler of 64 chains), from the fleet's initial state;
+* ``fleet_marginalize`` — ``marginalize_batch`` over (64, 100) given θ_tl rows;
+* ``fleet_choose_marg`` — ``BQFleet.choose_next(grid, n=10)`` (sampling
+  included) at B = 64;
 * ``large_refit_step`` / ``large_fast_step`` — at max_obs 1024 (chip_smoke.py's
   large-N recipe, 1,012 observations, s = 0.05, a 512-point grid): one
   choose_next plus one add at an interior point between two observations, by
@@ -31,7 +38,8 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
 busy time under ``torch.profiler`` (the union of the kernels' intervals on the
-device timeline), the idle share 1 − busy / wall, and the kernel count. The
+device timeline), the idle share 1 − busy / wall, the kernel count and, for
+the pieces that sample, the sampler's host reads in one call. The
 per-operator tables go to ``--out``, with each profiled run's count of
 every device kernel by name. ``--profiles N`` profiles each piece N times
 and adds each run's kernel count and busy time to its line, and the names
@@ -89,14 +97,21 @@ def short_name(name: str) -> str:
     return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:60]
 
 
-def profile_piece(name: str, fn, iters: int, out, profiles: int = 1) -> dict:
+def profile_piece(name: str, fn, iters: int, out, profiles: int = 1, count_reads: bool = False) -> dict:
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from tpubq_torch.models import marginalize as margm
+
     wall_ms = cs.host_ms(fn, iters)
+    count_reads = count_reads and hasattr(margm.slice_sample, "host_reads")  # not in a --root before the count
+    if count_reads:
+        reads = margm.slice_sample.host_reads
+        fn()
+        reads = margm.slice_sample.host_reads - reads
     runs = []
     for _ in range(profiles):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -110,6 +125,8 @@ def profile_piece(name: str, fn, iters: int, out, profiles: int = 1) -> dict:
     busy_ms, n_kernels, _ = runs[0]
     res = dict(piece=name, wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=max(0.0, 1.0 - busy_ms / wall_ms), device_kernels=n_kernels)
+    if count_reads:
+        res["host_reads_per_call"] = reads
     if profiles > 1:
         every = sorted(set().union(*(r[2] for r in runs)))
         res.update(device_busy_ms_runs=[r[0] for r in runs], device_kernels_runs=[r[1] for r in runs],
@@ -153,10 +170,10 @@ def main() -> int:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as out:
         out.write(f"{label}\n")
-        if want("fit_hypers", "step", "marginalize", "sampler"):
+        if want("fit_hypers", "step", "marginalize", "sampler", "sampler_chains_c1", "sampler_chains_c4"):
             profile_single(dev, grid, args.iters, out, want, args.profiles)
-        if want("fleet_fit", "fleet_step"):
-            profile_fleet(dev, grid, args.iters, out, args.profiles)
+        if want("fleet_fit", "fleet_step", "fleet_sampler", "fleet_marginalize", "fleet_choose_marg"):
+            profile_fleet(dev, grid, args.iters, out, want, args.profiles)
         if want("large_refit_step", "large_fast_step", "large_marginalize"):
             profile_large_n(dev, args.iters, out, args.profiles)
         if want("large_fit_hypers"):
@@ -200,7 +217,11 @@ def profile_single(dev, grid, iters: int, out, want, profiles: int = 1) -> None:
     if want("marginalize"):
         profile_piece("marginalize", lambda: margm.marginalize(st, bq.options, th), iters, out, profiles)
     if want("sampler"):
-        profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out, profiles)
+        profile_piece("sampler", lambda: bq.sample_hypers(n=20, seed=8), 2, out, profiles, count_reads=True)
+    for C in (1, 4):
+        if want(f"sampler_chains_c{C}"):
+            profile_piece(f"sampler_chains_c{C}", lambda C=C: bq.sample_hypers(n=100, seed=9, n_chains=C), 2, out,
+                          profiles, count_reads=True)
     bq._state = st
 
 
@@ -313,9 +334,14 @@ def kernel_cases(dev) -> list:
 #: the fleet's two-rung refits at B = 64 (log-GP 32 rows, linear GP 44),
 #: small batched refits, marginalize at max_obs 128, and (200, 140) and the
 #: card tests' (256, 80), where the panels were held against the
-#: ``cholesky_batched`` route.
+#: ``cholesky_batched`` route; the slice sampler's stacks of R = 1, 4, 64 and
+#: 256 rows (a step-out evaluates 2R) at n = 32 (θ_tl) and 44 (the joint
+#: density's linear GP), and the fleet marginalize's (12,800, n), both rungs
+#: of 64 problems × 100 rows.
 CHOL_SHAPES = ((200, 32, 21), (128, 32, 21), (128, 44, 33), (2, 32, 21), (4, 32, 21), (8, 32, 21),
-               (2, 44, 33), (4, 44, 33), (8, 44, 33), (200, 128, 116), (200, 140, 128), (256, 80, 61))
+               (2, 44, 33), (4, 44, 33), (8, 44, 33), (200, 128, 116), (200, 140, 128), (256, 80, 61),
+               (1, 32, 21), (1, 44, 33), (64, 32, 21), (64, 44, 33), (256, 32, 21), (256, 44, 33),
+               (12800, 32, 21), (12800, 44, 33))
 
 #: ``gaussian_gram`` (n1, n2) at d = 1: the linear GP's Gram at max_obs 1024,
 #: its column against one point, and 44 rows against a 10⁴-point grid.
@@ -449,19 +475,37 @@ def profile_large_n(dev, iters: int, out, profiles: int = 1) -> None:
     profile_piece("large_marginalize", lambda: margm.marginalize(st, opts, thetas), 3, out, profiles)
 
 
-def profile_fleet(dev, grid, iters: int, out, profiles: int = 1) -> None:
+def profile_fleet(dev, grid, iters: int, out, want, profiles: int = 1) -> None:
+    import torch
+
     from tpubq_torch import BQFleet
+    from tpubq_torch.models import batched
 
     xs, ls, mus = cs.fleet_data(cs.FLEET_B, cs.FLEET_N_OBS)
     fleet = BQFleet(xs, ls, device=dev, dtype="float32", params_tl=cs.PARAMS_TL, params_l=cs.PARAMS_L,
                     n_candidate=12, candidate_thresh=0.2, max_obs=cs.FLEET_MAX_OBS, s=cs.S_MAIN)
     st0 = fleet.states
+    if want("fleet_sampler"):
+        profile_piece("fleet_sampler", lambda: fleet.sample_hypers(n=100, seed=9), 2, out, profiles,
+                      count_reads=True)
+    if want("fleet_marginalize"):
+        rows = torch.as_tensor(fleet.sample_hypers(n=100, seed=10), device=dev)
+        profile_piece("fleet_marginalize", lambda: batched.marginalize_batch(st0, fleet.options, rows), iters,
+                      out, profiles)
+    if want("fleet_choose_marg"):
+        profile_piece("fleet_choose_marg", lambda: fleet.choose_next(grid, n=10, seed=11), 3, out, profiles,
+                      count_reads=True)
+    if not want("fleet_fit", "fleet_step"):
+        return
 
     def fit():
         fleet._states = st0
         fleet.fit(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
 
-    profile_piece("fleet_fit", fit, 3, out, profiles)
+    if want("fleet_fit"):
+        profile_piece("fleet_fit", fit, 3, out, profiles)
+    else:
+        fit()
     for _ in range(3):
         xn = fleet.choose_next(grid)
         fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
@@ -472,7 +516,8 @@ def profile_fleet(dev, grid, iters: int, out, profiles: int = 1) -> None:
         xn = fleet.choose_next(grid)
         fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
 
-    profile_piece("fleet_step", step, iters, out, profiles)
+    if want("fleet_step"):
+        profile_piece("fleet_step", step, iters, out, profiles)
 
 
 if __name__ == "__main__":

@@ -193,7 +193,7 @@ def test_slice_sample_gaussian_moments():
     mu, sd = 1.5, 0.7
 
     def logpdf(u):
-        return -0.5 * ((float(u[0]) - mu) / sd) ** 2
+        return -0.5 * ((u[..., 0] - mu) / sd) ** 2
 
     gen = torch.Generator().manual_seed(3)
     s = tp.np_(tmarg.slice_sample(gen, logpdf, torch.zeros(1), 4000, nburn=50))[:, 0]
@@ -210,8 +210,10 @@ def test_sample_hypers_moves_only_named_params():
     assert th.shape == (20, 2) and np.all(th > 0)
     np.testing.assert_array_equal(th[:, 0], np.full(20, tp.PARAMS_TL[0]))
     assert np.unique(th[:, 1]).size > 5
-    with pytest.raises(NotImplementedError, match="joint"):
-        bt.sample_hypers(params=("w_l",), n=2)
+    th_l = bt.sample_hypers(params=("w_l",), n=6, nburn=2, seed=1)  # joint rows (θ_tl ∥ θ_l)
+    assert th_l.shape == (6, 4)
+    np.testing.assert_array_equal(th_l[:, :3], np.tile(tp.PARAMS_TL + tp.PARAMS_L[:1], (6, 1)))
+    assert np.unique(th_l[:, 3]).size > 2
     with pytest.raises(ValueError, match="unknown hyperparameter"):
         bt.sample_hypers(params=("ell",), n=2)
     zm, zv = bt.marginalize(n=8, seed=2)

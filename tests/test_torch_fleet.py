@@ -354,7 +354,7 @@ def test_fleet_equals_single_problems(dtype):
             assert float((scores[i] - s1).abs()[both].max()) <= 1e-4 * float(s1.abs().max())
         assert float(x1) == float(x_next[i])
         one_new = tacq.add_observation(one, opts, x1, tu.f_l(x1.numpy()))
-        got = tbat._tree_map(lambda a: a[i], new)
+        got = tbq.tree_map(lambda a: a[i], new)
         assert int(got.ns) == int(one_new.ns) == 11
         np.testing.assert_allclose(got.x_s.numpy(), one_new.x_s.numpy(), rtol=tol)
         np.testing.assert_allclose(got.l_c.numpy(), one_new.l_c.numpy(), rtol=tol, atol=tol)
@@ -398,8 +398,8 @@ def test_run_active_loop_batch_matches_jax_f64():
     for a, b in zip(f2[:11], ft[:11]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     np.testing.assert_array_equal(f2.gp_l.L.numpy(), ft.gp_l.L.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbat.run_active_loop_batch(st, ot, _lik_t, grid, 1, hyper_samples=np.ones((3, 2, 2)))
+    f1, (zm1, _) = tbat.run_active_loop_batch(st, ot, _lik_t, grid, 1, hyper_samples=np.ones((3, 2, 2)))
+    assert zm1.shape == (1, 3) and f1.ns.tolist() == [11, 11, 11]
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +473,7 @@ def test_fit_batch_routes():
     ft = tbat.fit_batch(st, ot, torch.Generator().manual_seed(0), ntry=4)
     jk, tk = jkern("gaussian")[0], tkern("gaussian")[0]
     for i in range(2):
-        one_j, one_t = jax.tree.map(lambda a: a[i], fj), tbat._tree_map(lambda a: a[i], ft)
+        one_j, one_t = jax.tree.map(lambda a: a[i], fj), tbq.tree_map(lambda a: a[i], ft)
         for gp_name, x_name, y_j in (("gp_log_l", "x_s", one_j.tl_s),
                                      ("gp_l", "x_sc", jnp.where(one_j.sc_mask, one_j.l_sc, 0.0))):
             gj, gt = getattr(one_j, gp_name), getattr(one_t, gp_name)
@@ -541,9 +541,11 @@ def test_bqfleet_surface_and_guard_rails():
     again = tpubq_torch.BQFleet.from_states(fleet.states, fleet.options, seed=7)
     assert again.device.type == "cpu" and len(again) == 3
     np.testing.assert_array_equal(again.Z_mean(), fleet.Z_mean())
-    for call in (lambda: fleet.sample_hypers(n=5), lambda: fleet.marginalize(n=5), lambda: fleet.choose_next(grid, n=3),
-                 lambda: fleet.run_active_loop(_lik_t, grid, 0, n=3), fleet.health, lambda: fleet.save("fleet.npz"),
-                 lambda: tpubq_torch.BQFleet.load("fleet.npz")):
+    assert fleet.sample_hypers(n=5, nburn=1, seed=0).shape == (3, 5, 2)
+    assert [o.shape for o in fleet.marginalize(n=5, seed=1)] == [(3, 5), (3, 5)]
+    assert fleet.choose_next(grid, n=3, seed=2).shape == (3, 1)
+    assert [z.shape for z in fleet.run_active_loop(_lik_t, grid, 0, n=3)] == [(0, 3), (0, 3)]
+    for call in (fleet.health, lambda: fleet.save("fleet.npz"), lambda: tpubq_torch.BQFleet.load("fleet.npz")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     with pytest.raises(ValueError, match="unknown options"):

@@ -65,7 +65,8 @@ def _testbed_bq(device, near_duplicate=False, max_obs=32):
     return bq.init(params_tl=PARAMS_TL, params_l=PARAMS_L)
 
 
-@pytest.mark.parametrize("B,N", [(200, 32), (200, 44), (256, 80)])
+# (12800, n): the fleet's marginalize at B = 64 and 100 rows, both rungs
+@pytest.mark.parametrize("B,N", [(200, 32), (200, 44), (256, 80), (12800, 32), (12800, 44)])
 def test_chol_batch_kernel_matches_plain(cuda, B, N):
     Ks = torch.as_tensor(_spd(np.random.RandomState(9), B, N), device=cuda)
     L = hk.chol_batch(Ks)
@@ -457,12 +458,16 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
 
 
 def test_main_path_on_card_goes_through_both_kernels(cuda):
+    """choose_next launches esm_fused; marginalize(n=8) launches chol_batch
+    once for its rung stack and once per log density of its sampler."""
+    from tpubq_torch.models import marginalize as margm
+
     bq = _testbed_bq(cuda)
-    e0, c0 = hk.esm_fused.launches, hk.chol_batch.launches
+    e0, c0, v0 = hk.esm_fused.launches, hk.chol_batch.launches, margm.slice_sample.evaluations
     x = bq.choose_next(np.linspace(-4.0, 4.0, 1001))
     zm, zv = bq.marginalize(n=8, seed=0)
     assert hk.esm_fused.launches == e0 + hk.esm_fused_launches(bq.options.max_nsc, bq.options.max_obs, 1)
-    assert hk.chol_batch.launches == c0 + 1
+    assert hk.chol_batch.launches == c0 + 1 + (margm.slice_sample.evaluations - v0)
     assert np.isfinite(x) and np.all(np.isfinite(zm)) and np.all(zv >= 0)
 
 
@@ -951,3 +956,89 @@ def test_esm_scores_a_state_above_the_fused_kernels_budget(cuda):
     want = torch.as_tensor(cpu.expected_squared_mean(grid))
     off = (got - want).abs() > 1e-4 * float(want.abs().max())
     assert int(off.sum()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# hyper-marginalization: the lock-step sampler and the flattened fleet scorer
+# ---------------------------------------------------------------------------
+
+
+def _marg_bq(device, dtype):
+    import tpubq_torch
+
+    x = np.linspace(-2.2, 2.2, 10)
+    l = np.exp(-0.5 * ((x - 0.2) / 0.5) ** 2) / (0.5 * np.sqrt(2.0 * np.pi))
+    bq = tpubq_torch.BQ(x, l, device=device, dtype=dtype, max_obs=32, n_candidate=12, candidate_thresh=0.2,
+                        x_mean=0.0, x_var=1.0, s=0.01)
+    return bq.init(params_tl=PARAMS_TL, params_l=PARAMS_L)
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["theta_tl", "joint"])
+def test_lockstep_sampler_on_the_card_matches_the_plain_sampler(cuda, joint):
+    """The lock-step sampler in float64 on the card, four rows at once,
+    against the plain sequential sampler in float64 on the CPU, on the same
+    uniforms: the same draws to 1e-9 (the log densities of the two devices
+    differ by rounding only)."""
+    from tpubq_torch.models import marginalize as margm
+
+    p = 4 if joint else 2
+    bq, cpu = _marg_bq(cuda, "float64"), _marg_bq("cpu", "float64")
+    u0 = np.log(np.array(PARAMS_TL + PARAMS_L)[:p]) + 0.1 * np.random.RandomState(0).randn(4, p)
+    unif = margm.draw_uniforms(torch.Generator().manual_seed(1), 4, 5, p)
+    reads = margm.slice_sample.host_reads
+    lock = margm.slice_sample(None, margm.log_density(bq.state, bq.options, joint),
+                              torch.as_tensor(u0, device=cuda), 3, 2, uniforms=unif).cpu()
+    assert margm.slice_sample.host_reads - reads <= margm.slice_sample.evaluations
+    lp_cpu = margm.log_density(cpu.state, cpu.options, joint)
+    for r in range(4):
+        plain = margm.slice_sample_plain(lp_cpu, torch.as_tensor(u0[r]), unif[r], 3, 2)
+        np.testing.assert_allclose(lock[r].numpy(), plain.numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_float32_sampler_on_the_card(cuda):
+    """float32 draws on the card (θ_tl with four chains, joint rows, a fleet
+    of 8): finite and positive, of the JAX package's shapes, each log
+    density one chol_batch launch per factored stack."""
+    from tpubq_torch.models import marginalize as margm
+
+    bq = _marg_bq(cuda, "float32")
+    c0, e0 = hk.chol_batch.launches, margm.slice_sample.evaluations
+    th = bq.sample_hypers(n=12, nburn=2, seed=3, n_chains=4)
+    assert hk.chol_batch.launches - c0 == margm.slice_sample.evaluations - e0
+    thj = bq.sample_hypers(params=("h", "w", "h_l", "w_l"), n=6, nburn=2, seed=4)
+    states, opts = _fleet_state(cuda, 8, 10, 16)
+    thf = batched.sample_hypers_batch(states, opts, torch.Generator().manual_seed(5), 6, nburn=2)
+    assert th.shape == (12, 2) and thj.shape == (6, 4) and tuple(thf.shape) == (8, 6, 2)
+    for t in (th, thj, thf.cpu().numpy()):
+        assert np.all(np.isfinite(t)) and np.all(t > 0)
+
+
+def _marg_rows(B, S, seed):
+    rng = np.random.RandomState(seed)
+    return np.exp(np.log(PARAMS_TL) + 0.1 * rng.randn(B, S, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,S,G", [(64, 10, 10_000), (64, 1024, 16)])
+def test_flattened_fleet_scorer(cuda, monkeypatch, B, S, G):
+    """``choose_next_marg_batch``'s scores: B·S re-anchored states scored as
+    one flattened fleet through the fleet kernels, against S_chunk = 1 (B
+    problems a launch), at B·S = 640 and at the launch limit's edge (S =
+    1024, chunks of 1,023 rows: 65,472 problems a launch): each problem's
+    averaged score within 1e-4 of its largest off at most 6 points a
+    problem, and the same picks but where two scores tie to 1e-4."""
+    states, opts = _fleet_state(cuda, B, 10, 16, s=0.01)
+    grid = torch.linspace(-4.0, 4.0, G, device=cuda)[:, None]
+    rows = torch.as_tensor(_marg_rows(B, S, 7), device=cuda)
+    chunk = batched.marg_chunk(B, S, G, opts)
+    assert chunk == min(S, hk.FLEET_MAX_PROBLEMS // B) and B * chunk <= hk.FLEET_MAX_PROBLEMS
+    l0 = hk.esm_fleet_l.launches
+    flat = batched._marg_scores(states, opts, grid, rows)
+    assert hk.esm_fleet_l.launches - l0 == -(-S // chunk)
+    monkeypatch.setattr(batched, "_MARG_CHUNK_ELEMS", 1)
+    one = batched._marg_scores(states, opts, grid, rows)
+    assert hk.esm_fleet_l.launches - l0 == -(-S // chunk) + S
+    off = (flat - one).abs() > 1e-4 * one.abs().amax(1, keepdim=True)
+    assert int(off.sum(1).max()) <= 6
+    a, b = flat.argmax(1), one.argmax(1)
+    tie = (one.gather(1, a[:, None]) - one.gather(1, b[:, None])).abs()[:, 0] <= 1e-4 * one.abs().amax(1)
+    assert bool(((a == b) | tie).all())

@@ -221,7 +221,8 @@ def expected_Z_var(state: BQState, opts: BQOptions, x_a) -> torch.Tensor:
 def choose_next(state: BQState, opts: BQOptions, x_a, hyper_samples=None):
     """argmax of the (hyper-marginalized) ESM over the grid → (x_best, scores).
 
-    ``hyper_samples``: optional (n, p) θ_tl rows; the state is re-anchored
+    ``hyper_samples``: optional (n, p) rows, θ_tl or joint θ_tl ∥ θ_l
+    (``bq.apply_hyper_sample``); the state is re-anchored
     and the grid scored under each row in turn, so memory stays O(grid).
     """
     x_a = as_points(x_a, opts.dim, state.x_s.dtype, state.x_s.device)

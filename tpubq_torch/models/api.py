@@ -198,34 +198,48 @@ class BQ:
             return (params,)
         return tuple(params)
 
-    def _sample(self, params, n, nburn, seed, prior_std) -> torch.Tensor:
+    def _sample(self, params, n, nburn, seed, prior_std, n_chains=1) -> torch.Tensor:
         return margm.sample_hypers(
             self.state, self.options, self._generator(seed), n, nburn,
-            self._norm_params(params),
+            self._norm_params(params), n_chains=n_chains,
             prior_std=margm._PRIOR_STD if prior_std is None else prior_std,
         )
 
     def sample_hypers(self, params=None, n: int = None, nburn: int = None, seed=None,
-                      prior_std: float = None) -> np.ndarray:
-        """Slice-sample θ_tl (``sample_hypers(params, n, nburn)``) → (n, p)."""
+                      n_chains: int = 1, prior_std: float = None) -> np.ndarray:
+        """Slice-sample hyperparameters (``sample_hypers(params, n, nburn)``)
+        → (n, p). ``params`` names the hypers that move: ``h`` / ``w`` sample
+        θ_tl; adding ``*_l`` names samples both GPs' θ jointly, and the rows
+        come back stacked (θ_tl ∥ θ_l). ``n_chains`` chains run in lock step
+        (``marginalize.sample_hypers``)."""
+        if isinstance(params, (int, np.integer)):
+            raise TypeError(
+                "sample_hypers takes params first (reference signature "
+                "sample_hypers(params, n, nburn)); the legacy positional "
+                "(n, nburn, seed) form was removed — pass n= explicitly"
+            )
         n = 100 if n is None else int(n)
         nburn = 10 if nburn is None else int(nburn)
-        return _np(self._sample(params, n, nburn, seed, prior_std))
+        return _np(self._sample(params, n, nburn, seed, prior_std, n_chains))
 
     def marginalize(self, funs=None, n: int = 100, params=None, seed=None,
-                    prior_std: float = None):
-        """Estimates under ``n`` sampled θ_tl, evaluated as one batch → tuple
-        of (n,) arrays, one per function of ``funs`` (default Z_mean, Z_var)."""
+                    prior_std: float = None, stacked: bool = False):
+        """Estimates under ``n`` sampled hypers of the named ``params`` (θ_tl,
+        or jointly with ``*_l`` names), evaluated as one batch → tuple of (n,)
+        arrays, one per function of ``funs`` (default Z_mean, Z_var), or with
+        ``stacked=True`` one (n, len(funs)) array whose column j is funs[j]."""
         self._check_factorized()
         named = {"Z_mean": bqm.Z_mean, "Z_var": bqm.Z_var}
         funs = (bqm.Z_mean, bqm.Z_var) if funs is None else tuple(named.get(f, f) for f in funs)
         thetas = self._sample(params, n, 10, seed, prior_std)
-        return tuple(_np(o) for o in margm.marginalize(self.state, self.options, thetas, funs))
+        outs = tuple(_np(o) for o in margm.marginalize(self.state, self.options, thetas, funs))
+        return np.stack(outs, axis=1) if stacked else outs
 
     # --------------------------------------------------------- active sampling
     def choose_next(self, x_a, n: int = 0, params=None, seed=None, prior_std: float = None):
         """Best next sample location on the grid ``x_a``, with the ESM averaged
-        over ``n`` θ_tl samples when ``n`` > 0."""
+        over ``n`` hyper samples of the named ``params`` (θ_tl, or jointly
+        with ``*_l`` names) when ``n`` > 0."""
         self._check_factorized()
         hyper = self._sample(params, n, 10, seed, prior_std) if n and n > 0 else None
         x_best, _ = acquire.choose_next(self.state, self.options, x_a, hyper)

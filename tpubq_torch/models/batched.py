@@ -19,10 +19,18 @@ combine (``expected_squared_mean_fleet``). Everything else (float64,
 per-problem grids, sizes beyond the kernels) takes the plain batched scorer,
 ``acquire.expected_squared_mean_xla`` over the problem axis.
 
-Not ported yet (ROADMAP.md, queue 1): ``sample_hypers_batch``,
-``marginalize_batch``, ``choose_next_marg_batch`` and with them the ``n > 0``
-forms of ``BQFleet.choose_next`` / ``run_active_loop``, and
-``BQFleet.health`` / ``save`` / ``load``.
+Hyper-marginalization: ``sample_hypers_batch`` runs all B·n_chains chains of
+the fleet as one lock-step slice sampler against each problem's own data
+(``marginalize.sample_hypers``); ``marginalize_batch`` installs (B, S, p)
+rows as one batched refit (a (B, S, n, n) Gram stack per GP, one ``chol_batch``
+launch per rung stack in float32 on the card); ``choose_next_marg_batch``
+re-anchors S_chunk rows of every problem at a time and scores them as one
+flattened fleet of B·S_chunk problems through ``expected_squared_mean_batch``
+(the fleet kernels where ``fleet_scorer_supported``), then averages each
+problem's scores over its own rows before the selection.
+
+Not ported yet (ROADMAP.md, queue 1, item 4): ``BQFleet.health`` / ``save`` /
+``load``.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import warnings
 import numpy as np
 import torch
 
-from tpubq_torch.models import acquire, bq as bqm, fit as fitm, gp as gpm
+from tpubq_torch.models import acquire, bq as bqm, fit as fitm, gp as gpm, marginalize as margm
 from tpubq_torch.models.bq import BQState
 from tpubq_torch.ops import hopper_kernels as hk
 from tpubq_torch.utils.device import resolve_device
@@ -52,6 +60,9 @@ __all__ = [
     "choose_next_batch",
     "add_observation_batch",
     "run_active_loop_batch",
+    "sample_hypers_batch",
+    "marginalize_batch",
+    "choose_next_marg_batch",
 ]
 
 #: Noise multiplier of the fleet scorer's adaptive guard: a Schur complement
@@ -60,16 +71,7 @@ __all__ = [
 #: single-problem scorer (``acquire._LAM_F32``).
 _LAM_F32 = acquire._LAM_F32
 
-_NOT_PORTED = "is not ported to tpubq_torch yet (ROADMAP.md, queue 1, item 3)"
-
-
-def _tree_map(fn, state: BQState) -> BQState:
-    """Apply ``fn`` to every tensor leaf of a state (None leaves stay None)."""
-
-    def gp(g):
-        return gpm.GPState(*(None if v is None else fn(v) for v in g))
-
-    return BQState(*(gp(v) if isinstance(v, gpm.GPState) else fn(v) for v in state))
+_NOT_PORTED = "is not ported to tpubq_torch yet (ROADMAP.md, queue 1, item 4)"
 
 
 def _shared_or_per_problem(v, B: int, d: int, what: str, per_problem_shape):
@@ -477,29 +479,107 @@ def add_observation_batch(states: BQState, opts: BQOptions, x_new, l_new) -> BQS
     return acquire.add_observation(states, opts, x_new, l_new)
 
 
+def sample_hypers_batch(states: BQState, opts: BQOptions, gen: torch.Generator, n: int,
+                        nburn: int = 10, params=None, n_chains: int = 1,
+                        prior_std: float = None) -> torch.Tensor:
+    """(B, n, p) per-problem hyper-posterior draws: every problem's
+    ``n_chains`` chains, B·n_chains rows in all, advance as one lock-step
+    slice sampler (``marginalize.sample_hypers`` on the fleet state)."""
+    _require_batched(states)
+    return margm.sample_hypers(states, opts, gen, n, nburn=nburn, params=params, n_chains=n_chains,
+                               prior_std=margm._PRIOR_STD if prior_std is None else prior_std)
+
+
+def marginalize_batch(states: BQState, opts: BQOptions, hyper_samples, funs=None):
+    """Per-problem hyper-marginalized estimates: ``hyper_samples`` (B, S, p)
+    (θ_tl or joint rows, e.g. from ``sample_hypers_batch``) → tuple of (B, S)
+    tensors, one batched refit of all B·S rows."""
+    B = _require_batched(states)
+    if funs is None:
+        funs = (bqm.Z_mean, bqm.Z_var)
+    hyper_samples = torch.as_tensor(hyper_samples, dtype=states.x_s.dtype, device=states.x_s.device)
+    if hyper_samples.ndim != 3 or hyper_samples.shape[0] != B:
+        raise ValueError(f"hyper_samples must be (B, S, p) with B = {B}; got {tuple(hyper_samples.shape)}")
+    return margm.marginalize(states, opts, hyper_samples, funs)
+
+
+#: Elements of the scorer's largest intermediate per chunk of
+#: ``choose_next_marg_batch``: B·S_chunk·G per output of the fleet kernels,
+#: B·S_chunk·G·max_nsc for the plain batched scorer.
+_MARG_CHUNK_ELEMS = 1 << 26
+
+
+def marg_chunk(B: int, S: int, G: int, opts: BQOptions) -> int:
+    """Hyper rows per problem that ``choose_next_marg_batch`` re-anchors and
+    scores at a time: memory stays O(B·S_chunk·G) (times max_nsc on the plain
+    scorer) and B·S_chunk within the fleet kernels' launch limit."""
+    per_row = G * (8 if fleet_scorer_supported(opts) else opts.max_nsc)
+    return max(1, min(S, _MARG_CHUNK_ELEMS // max(1, B * per_row), hk.FLEET_MAX_PROBLEMS // B))
+
+
+def _marg_scores(states: BQState, opts: BQOptions, grid, thetas) -> torch.Tensor:
+    """(B, G) ESM of each problem averaged over its own rows of ``thetas``
+    (B, S, p): S_chunk rows of every problem are installed at once and the
+    B·S_chunk re-anchored states scored as one flattened fleet; each
+    problem's scores are summed over its rows in order."""
+    B = _require_batched(states)
+    dtype, dev = states.x_s.dtype, states.x_s.device
+    thetas = torch.as_tensor(thetas, dtype=dtype, device=dev)
+    if thetas.ndim != 3 or thetas.shape[0] != B:
+        raise ValueError(f"thetas must be (B, S, p) with B = {B}; got {tuple(thetas.shape)}")
+    grid = acquire.as_points(grid, opts.dim, dtype, dev)
+    S, G = thetas.shape[1], grid.shape[0]
+    chunk = marg_chunk(B, S, G, opts)
+    total = torch.zeros((B, G), dtype=dtype, device=dev)
+    for s0 in range(0, S, chunk):
+        th = thetas[:, s0:s0 + chunk]
+        c = th.shape[1]
+        st = bqm.apply_hyper_sample(states, opts, th)
+        flat = bqm.tree_map(lambda a: a.expand(B, c, *a.shape[2:]).reshape(B * c, *a.shape[2:]), st)
+        esm = expected_squared_mean_batch(flat, opts, grid).reshape(B, c, G)
+        for k in range(c):
+            total = total + esm[:, k]
+    return total / S
+
+
+def choose_next_marg_batch(states: BQState, opts: BQOptions, grid, thetas) -> torch.Tensor:
+    """Per-problem hyper-marginalized selection → (B, d): each problem's ESM
+    averaged over its own n rows of ``thetas`` (B, n, p), then the
+    duplicate-avoiding argmax (``BQ.choose_next(x, n)``, fleet-wide)."""
+    scores = _marg_scores(states, opts, grid, thetas)
+    grid2 = acquire.as_points(grid, opts.dim, states.x_s.dtype, states.x_s.device)
+    sel = acquire.demote_near_observed(scores, grid2, states.x_s, states.obs_mask,
+                                       opts.candidate_thresh)
+    return grid2[torch.argmax(sel, dim=1)]
+
+
 def run_active_loop_batch(states: BQState, opts: BQOptions, loglik_fn, grid, n_steps: int,
                           hyper_samples=None, record_moments: bool = True):
     """Fleet-wide active sampling: every problem picks and absorbs its own
     next point each step. ``loglik_fn`` maps a (d,) tensor to the likelihood
     there and is applied across the fleet's choices with ``torch.vmap``.
+    ``hyper_samples``: optional (B, n, p) per-problem draws (e.g. from
+    ``sample_hypers_batch``), held fixed over the loop; each step's
+    acquisition is then marginalized per problem (``choose_next_marg_batch``).
     Returns (final_state, (Z_mean (n_steps, B), Z_var (n_steps, B))), or
     (final_state, None) with ``record_moments=False``, which skips the
-    per-step moments and leaves the final state identical. Per-problem
-    ``hyper_samples`` are not ported yet.
+    per-step moments and leaves the final state identical.
     """
-    if hyper_samples is not None:
-        raise NotImplementedError(f"run_active_loop_batch(hyper_samples=...) {_NOT_PORTED}")
     lik = torch.vmap(loglik_fn)
     zms, zvs = [], []
     for _ in range(n_steps):
-        x_next, _ = choose_next_batch(states, opts, grid)
+        if hyper_samples is None:
+            x_next, _ = choose_next_batch(states, opts, grid)
+        else:
+            x_next = choose_next_marg_batch(states, opts, grid, hyper_samples)
         states = add_observation_batch(states, opts, x_next, lik(x_next))
         if record_moments:
             zms.append(Z_mean_batch(states, opts))
             zvs.append(Z_var_batch(states, opts))
     if not record_moments:
         return states, None
-    return states, (torch.stack(zms), torch.stack(zvs))
+    empty = states.x_s.new_empty((0, states.ns.shape[0]))
+    return states, tuple(torch.stack(z) if z else empty for z in (zms, zvs))
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -572,7 +652,7 @@ class BQFleet:
     def problem(self, i: int) -> BQState:
         """Problem ``i`` as a standalone single-problem state (pair it with
         ``self.options`` for any ``tpubq_torch.models`` function)."""
-        return _tree_map(lambda a: a[i], self._states)
+        return bqm.tree_map(lambda a: a[i], self._states)
 
     # -- estimation -----------------------------------------------------------
     def Z_mean(self) -> np.ndarray:
@@ -603,19 +683,38 @@ class BQFleet:
 
     fit_hypers = fit
 
-    def sample_hypers(self, *args, **kwargs):
-        raise NotImplementedError(f"BQFleet.sample_hypers {_NOT_PORTED}")
+    @staticmethod
+    def _norm_params(params):
+        if params is not None and not isinstance(params, tuple):
+            params = (params,) if isinstance(params, str) else tuple(params)
+        return params
 
-    def marginalize(self, *args, **kwargs):
-        raise NotImplementedError(f"BQFleet.marginalize {_NOT_PORTED}")
+    def sample_hypers(self, params=None, n: int = 100, nburn: int = 10, seed=None,
+                      n_chains: int = 1, prior_std: float = None) -> np.ndarray:
+        """(B, n, p) per-problem hyper-posterior draws (``BQ.sample_hypers``
+        per fleet member; all chains of the fleet in one lock-step sampler)."""
+        return _np(sample_hypers_batch(self._states, self.options, self._generator(seed), n,
+                                       nburn=nburn, params=self._norm_params(params),
+                                       n_chains=n_chains, prior_std=prior_std))
+
+    def marginalize(self, funs=None, n: int = 100, params=None, seed=None,
+                    prior_std: float = None):
+        """Per-problem hyper-marginalized estimates: tuple of (B, n) arrays
+        (``BQ.marginalize`` per fleet member, one batched refit)."""
+        thetas = sample_hypers_batch(self._states, self.options, self._generator(seed), n,
+                                     params=self._norm_params(params), prior_std=prior_std)
+        named = {"Z_mean": bqm.Z_mean, "Z_var": bqm.Z_var}
+        funs = None if funs is None else tuple(named.get(f, f) for f in funs)
+        return tuple(_np(o) for o in marginalize_batch(self._states, self.options, thetas, funs))
 
     # -- active sampling ------------------------------------------------------
     def choose_next(self, grid, n: int = 0, seed=None, fast: bool = False) -> np.ndarray:
-        """Per-problem best next location on a shared grid → (B, d). ``n > 0``
-        (marginalizing each problem's scores over its own hyper samples) is
-        not ported yet."""
+        """Per-problem best next location on a shared grid → (B, d); ``n > 0``
+        marginalizes each problem's ESM over ``n`` of its own hyper samples
+        (``BQ.choose_next(x, n)``, fleet-wide)."""
         if n > 0:
-            raise NotImplementedError(f"BQFleet.choose_next(n > 0) {_NOT_PORTED}")
+            thetas = sample_hypers_batch(self._states, self.options, self._generator(seed), n)
+            return _np(choose_next_marg_batch(self._states, self.options, grid, thetas))
         x_next, _ = choose_next_batch(self._states, self.options, grid, fast=fast)
         return _np(x_next)
 
@@ -648,18 +747,21 @@ class BQFleet:
                         record_moments: bool = True):
         """Advance every problem ``n_steps``; returns the per-step (Z_mean,
         Z_var) histories, each (n_steps, B), or ``(None, None)`` with
-        ``record_moments=False`` (final state identical). ``n > 0`` is not
-        ported yet."""
-        if n > 0:
-            raise NotImplementedError(f"BQFleet.run_active_loop(n > 0) {_NOT_PORTED}")
+        ``record_moments=False`` (final state identical). ``n > 0``
+        marginalizes each step's acquisition over ``n`` per-problem hyper
+        samples, drawn once before the loop."""
         ns = self.ns
         if np.any(ns + n_steps > self.options.max_obs):
             raise ValueError(
                 f"{n_steps} steps would exceed max_obs={self.options.max_obs} for a fleet "
                 f"member (ns={ns.tolist()}); rebuild the fleet with a larger max_obs"
             )
+        hyper_samples = None
+        if n > 0:
+            hyper_samples = sample_hypers_batch(self._states, self.options, self._generator(seed), n)
         self._states, moments = run_active_loop_batch(
-            self._states, self.options, loglik_fn, grid, n_steps, record_moments=record_moments)
+            self._states, self.options, loglik_fn, grid, n_steps, hyper_samples=hyper_samples,
+            record_moments=record_moments)
         if not record_moments:
             return None, None
         return _np(moments[0]), _np(moments[1])

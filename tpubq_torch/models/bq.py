@@ -125,15 +125,34 @@ def filter_candidates(x_c, x_s, obs_mask, thresh):
     return ~near
 
 
-def _fit_gps(state: BQState, opts: BQOptions, need_kinv: bool = True) -> BQState:
-    """(Re)build candidates, linearization anchors and both GP factors."""
+def tree_map(fn, state: BQState) -> BQState:
+    """Apply ``fn`` to every tensor leaf of a state (None leaves stay None)."""
+
+    def gp(g):
+        return gpm.GPState(*(None if v is None else fn(v) for v in g))
+
+    return BQState(*(gp(v) if isinstance(v, gpm.GPState) else fn(v) for v in state))
+
+
+def with_sample_axis(state: BQState) -> BQState:
+    """A fleet state with a singleton sample axis after its problem axis on
+    every leaf, so that (B, S, p) hyper rows broadcast against each problem's
+    own data; a single-problem state is returned as it is (its data carry no
+    batch axis, and (S, p) rows broadcast against them already)."""
+    k = state.ns.ndim
+    return tree_map(lambda a: a.unsqueeze(k), state) if k else state
+
+
+def _fit_gps(state: BQState, opts: BQOptions, need_kinv: bool = True, ladder: bool = True) -> BQState:
+    """(Re)build candidates, linearization anchors and both GP factors
+    (``ladder``: the jitter ladder, or one fixed-jitter factor)."""
     kfn, _ = get_kernel(opts.kernel)
     zero = torch.zeros_like(state.l_s)
     gamma = state.gamma[..., None]  # against the trailing point axis
     tl_s = torch.where(state.obs_mask, log_transform(state.l_s, gamma), zero)
     gp_tl = gpm.gp_fit(
         kfn, state.gp_log_l.theta, state.gp_log_l.s, state.x_s, tl_s, state.obs_mask,
-        base_jitter=opts.base_jitter, need_kinv=need_kinv,
+        base_jitter=opts.base_jitter, need_kinv=need_kinv, ladder=ladder,
     )
     x_c, c_mask = choose_candidates(state.x_s, state.obs_mask, opts)
     m_tl_c = gpm.gp_mean(kfn, gp_tl, x_c)
@@ -144,7 +163,7 @@ def _fit_gps(state: BQState, opts: BQOptions, need_kinv: bool = True) -> BQState
     sc_mask = torch.cat([state.obs_mask, c_mask], dim=-1)
     gp_l = gpm.gp_fit(
         kfn, state.gp_l.theta, state.gp_l.s, x_sc, l_sc, sc_mask,
-        base_jitter=opts.base_jitter, need_kinv=need_kinv,
+        base_jitter=opts.base_jitter, need_kinv=need_kinv, ladder=ladder,
     )
     return state._replace(tl_s=tl_s, x_c=x_c, l_c=l_c, c_mask=c_mask, gp_log_l=gp_tl, gp_l=gp_l)
 
@@ -278,9 +297,10 @@ def init_state(
 
 
 def set_params(state: BQState, opts: BQOptions, theta_tl=None, theta_l=None,
-               s_tl=None, s_l=None, need_kinv: bool = True) -> BQState:
+               s_tl=None, s_l=None, need_kinv: bool = True, ladder: bool = True) -> BQState:
     """Swap kernel hyperparameters (and optionally the noise) and refactorize.
-    ``theta_tl`` may be a (B, p) stack (one refit per row, batched)."""
+    ``theta_tl`` / ``theta_l`` may be (S, p) stacks (one refit per row,
+    batched)."""
     dtype, dev = state.x_s.dtype, state.x_s.device
 
     def t(v):
@@ -295,21 +315,31 @@ def set_params(state: BQState, opts: BQOptions, theta_tl=None, theta_l=None,
         gp_l = gp_l._replace(theta=t(theta_l))
     if s_l is not None:
         gp_l = gp_l._replace(s=t(s_l))
-    return _fit_gps(state._replace(gp_log_l=gp_tl, gp_l=gp_l), opts, need_kinv)
+    return _fit_gps(state._replace(gp_log_l=gp_tl, gp_l=gp_l), opts, need_kinv, ladder)
 
 
 def apply_hyper_sample(state: BQState, opts: BQOptions, theta,
-                       need_kinv: bool = True) -> BQState:
-    """Install θ_tl hyper-sample rows — (p,) or a (B, p) stack — and refactorize."""
+                       need_kinv: bool = True, ladder: bool = True) -> BQState:
+    """Install hyper-sample rows and refactorize.
+
+    Width p_tl rows set θ_tl only; width p_tl + p_l rows (joint
+    ``sample_hypers``) set both GPs' θ. A single state takes (p,) or (S, p);
+    a fleet state (B, p), one row per problem, or (B, S, p), S rows per
+    problem (the state then gains a sample axis after its problem axis)."""
     theta = torch.as_tensor(theta, dtype=state.x_s.dtype, device=state.x_s.device)
     p_tl = state.gp_log_l.theta.shape[-1]
-    if theta.shape[-1] == p_tl:
-        return set_params(state, opts, theta_tl=theta, need_kinv=need_kinv)
-    if theta.shape[-1] == p_tl + state.gp_l.theta.shape[-1]:
-        raise NotImplementedError(
-            "joint (θ_tl ∥ θ_l) hyper rows are not ported yet (ROADMAP.md, queue 1)"
+    p_l = state.gp_l.theta.shape[-1]
+    if theta.shape[-1] not in (p_tl, p_tl + p_l):
+        raise ValueError(
+            f"hyper sample has width {theta.shape[-1]}; expected {p_tl} (θ_tl) "
+            f"or {p_tl + p_l} (joint θ_tl ∥ θ_l)"
         )
-    raise ValueError(f"hyper sample has width {theta.shape[-1]}; expected {p_tl} (θ_tl)")
+    if state.ns.ndim and theta.ndim == state.ns.ndim + 2:
+        state = with_sample_axis(state)
+    if theta.shape[-1] == p_tl:
+        return set_params(state, opts, theta_tl=theta, need_kinv=need_kinv, ladder=ladder)
+    return set_params(state, opts, theta_tl=theta[..., :p_tl], theta_l=theta[..., p_tl:],
+                      need_kinv=need_kinv, ladder=ladder)
 
 
 # ---------------------------------------------------------------------------

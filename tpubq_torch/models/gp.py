@@ -32,8 +32,9 @@ class GPState(NamedTuple):
     L: (n, n) Cholesky factor of the padded, conditioned Gram;
     alpha: (n,) K⁻¹y (zero at pads); Kinv: (n, n) explicit K⁻¹, or None when
     the fit was asked not to form it; jitter: absolute diagonal jitter
-    applied; ok: False iff the jitter ladder found no finite factor, in which
-    case ``alpha`` is NaN.
+    applied; ok: False iff no finite factor was found (the jitter ladder
+    exhausted, or the fixed-jitter factor not finite), in which case
+    ``alpha`` is NaN.
     """
 
     theta: torch.Tensor
@@ -63,8 +64,15 @@ def gp_fit(
     mask,
     base_jitter: float = 1e-12,
     need_kinv: bool = True,
+    ladder: bool = True,
 ) -> GPState:
-    """Factorize the Gram through the jitter ladder and cache (L, alpha[, K⁻¹]).
+    """Factorize the Gram and cache (L, alpha[, K⁻¹]).
+
+    ``ladder=True`` factors through the escalating jitter ladder (the
+    estimation paths); ``ladder=False`` through one fixed-jitter factor
+    (``linalg.cholesky_fixed``, the joint sampler's re-anchoring), with
+    ``jitter`` recorded in absolute units, ``base_jitter`` times the mean live
+    diagonal, and ``ok`` meaning every entry of the factor is finite.
 
     ``need_kinv`` forms the explicit K⁻¹ (float32 scoring reads it); eager
     PyTorch eliminates no dead code, so paths that never read it (the
@@ -78,7 +86,12 @@ def gp_fit(
     theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
     s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
     K = _gram(kfn, theta, s, x, mask)
-    L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
+    if ladder:
+        L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
+    else:
+        L = linalg.cholesky_fixed(K, mask, base_jitter)
+        jit_used = base_jitter * linalg._diag_scale(K, mask)
+        ok = torch.isfinite(L).all(-1).all(-1)
     ym = torch.where(mask, y, torch.zeros_like(y))
     alpha = linalg.chol_solve_vec(L, ym)
     Kinv = linalg.chol_inverse(L) if need_kinv else None
@@ -126,6 +139,14 @@ def log_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torch
     quad = (ym * alpha).sum(-1)
     logdet = linalg.masked_logdet(L, mask)
     return -0.5 * (quad + logdet + n_live * _LOG2PI)
+
+
+def fit_log_mll(gp: GPState) -> torch.Tensor:
+    """``log_mll`` of a fitted GP from its own factor and α (the same
+    arithmetic, without factoring the Gram again); NaN where ``ok`` is False."""
+    n_live = gp.mask.to(gp.L.dtype).sum(-1)
+    quad = (gp.y * gp.alpha).sum(-1)
+    return -0.5 * (quad + linalg.masked_logdet(gp.L, gp.mask) + n_live * _LOG2PI)
 
 
 def dlog_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torch.Tensor:

@@ -608,6 +608,11 @@ def esm_fleet_tl_plain(h2, w2inv, grid, xs, ms, Kinv, alpha):
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
+#: Problems of one fleet-kernel launch: they are the grid's y axis
+#: (``blockIdx.y``, ``csrc/esm_fleet_common.cuh``), at most 65,535 blocks.
+FLEET_MAX_PROBLEMS = 65535
+
+
 def _check_fleet(name: str, grid, rows: dict, B: int, NP: int, d: int):
     """Shapes, dtype, device and contiguity of a fleet scorer's tensors."""
     if not 1 <= d <= 3:
@@ -625,8 +630,8 @@ def _check_fleet(name: str, grid, rows: dict, B: int, NP: int, d: int):
             f"{name}: {NP} rows per problem exceed the fleet route's {FLEET_MAX_ROWS} rows "
             f"(the shared-memory budget of the first design; see {name}_supported)"
         )
-    if B > 65535:
-        raise ValueError(f"{name}: at most 65535 problems per launch, got {B}")
+    if B > FLEET_MAX_PROBLEMS:
+        raise ValueError(f"{name}: at most {FLEET_MAX_PROBLEMS} problems per launch, got {B}")
 
 
 def esm_fleet_l(params, w2inv, grid, xsc, msc, Kinv, uz, alpha, thresh: float, lam: float):

@@ -72,10 +72,17 @@ def _lib_cholesky(A: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_fixed(K: torch.Tensor, mask: torch.Tensor, jitter: float = 1e-12) -> torch.Tensor:
-    """Single masked Cholesky with a fixed relative jitter."""
+    """Single masked Cholesky with a fixed relative jitter. On the kernel
+    route (float32 on the card, no gradient: the slice sampler's log
+    densities) every matrix of the stack goes to ``posdef_cholesky_batched``;
+    a factor that autograd must differentiate (the L-BFGS fit) stays with
+    the library."""
     m = mask.to(K.dtype)
     Kp = pad_gram(K, mask)
     Kp = Kp + _eye(K) * (jitter * _diag_scale(K, mask))[..., None, None] * m[..., None, :]
+    if hk.kernel_route(Kp):
+        n = Kp.shape[-1]
+        return posdef_cholesky_batched(Kp.reshape(-1, n, n)).reshape(Kp.shape)
     return _lib_cholesky(Kp)
 
 

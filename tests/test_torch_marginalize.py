@@ -157,6 +157,56 @@ def test_n_chains_layout_frozen_coords_and_moments():
         bt.sample_hypers(20)
 
 
+def test_sampler_matches_jax_in_distribution():
+    """The port's ``sample_hypers(n=120, n_chains=4)`` and the JAX package's
+    on the same float64 testbed state draw from the same posterior: per
+    coordinate, means within 25% and log-scale standard deviations within a
+    factor of 3 (tests/test_marginalize.py's multi-chain tolerances, at its
+    seed). The two draw from different random streams."""
+    bj, bt = tp.make_pair("float64")
+    thj = bj.sample_hypers(n=120, nburn=20, seed=4, n_chains=4)
+    tht = bt.sample_hypers(n=120, nburn=20, seed=4, n_chains=4)
+    assert tht.shape == thj.shape == (120, 2) and np.all(tht > 0)
+    np.testing.assert_allclose(tht.mean(0), thj.mean(0), rtol=0.25)
+    ratio = np.std(np.log(tht), 0) / np.maximum(np.std(np.log(thj), 0), 1e-9)
+    assert np.all((0.3 < ratio) & (ratio < 3.0)), ratio
+
+
+def test_only_the_sampler_factors_on_chol_batch(monkeypatch):
+    """With every tensor taken for the card's (each wrapper then runs its
+    plain version on the CPU), the sampler's float32 log densities factor
+    their stacks on ``chol_batch``, while ``log_mll`` under ``no_grad`` (the
+    fit's restart scoring) and ``gp_fit(ladder=False)`` stay with the
+    library. Both float32 routes stay within 1e-3 of the float64 log density
+    (the library's own error there is up to 4.6e-4)."""
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    _, b32 = tp.make_pair("float32")
+    _, st64, ot64 = _single()
+    st, ot = b32.state, b32.options
+    calls = []
+    chol_batch = hk.chol_batch
+    monkeypatch.setattr(hk, "chol_batch", lambda a: calls.append(a.shape) or chol_batch(a))
+    kt = tkern("gaussian")[0]
+    thetas = torch.as_tensor(np.exp(_u_rows(2, 3, seed=6)), dtype=torch.float32)
+    args = (st.gp_log_l.s, st.x_s, st.tl_s, st.obs_mask)
+    us = {joint: _u_rows(4 if joint else 2, 3) for joint in (False, True)}
+    want = {j: tmarg.log_density(st64, ot64, sample_l=j)(torch.as_tensor(u)).numpy() for j, u in us.items()}
+    lib = {j: tmarg.log_density(st, ot, sample_l=j)(torch.as_tensor(u, dtype=torch.float32)).numpy()
+           for j, u in us.items()}
+    mll_lib = tgp.log_mll(kt, thetas, *args, 1e-10)
+    monkeypatch.setattr(hk, "on_card", lambda t: True)
+    with torch.no_grad():
+        np.testing.assert_array_equal(tgp.log_mll(kt, thetas, *args, 1e-10).numpy(), mll_lib.numpy())
+        tgp.gp_fit(kt, thetas, *args, base_jitter=1e-10, ladder=False)
+        assert calls == []
+        for j, u in us.items():
+            got = tmarg.log_density(st, ot, sample_l=j)(torch.as_tensor(u, dtype=torch.float32)).numpy()
+            np.testing.assert_allclose(got, want[j], rtol=0, atol=1e-3)
+            np.testing.assert_allclose(lib[j], want[j], rtol=0, atol=1e-3)
+    assert calls == [(3, 16, 16), (3, 16, 16), (3, 28, 28)]
+
+
 def test_joint_rows_marginalize_choose_next_and_stacked():
     """On the same joint θ rows the port's ``marginalize``, ``choose_next``
     and ``BQ.marginalize(stacked=True)`` equal the JAX package's (float64,

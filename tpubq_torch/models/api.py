@@ -191,17 +191,10 @@ class BQ:
     fit = fit_hypers
 
     # ---------------------------------------------------------- hyper samples
-    def _norm_params(self, params) -> tuple:
-        if params is None:
-            return tuple(sorted(margm._names_for(self.options)))
-        if isinstance(params, str):
-            return (params,)
-        return tuple(params)
-
     def _sample(self, params, n, nburn, seed, prior_std, n_chains=1) -> torch.Tensor:
         return margm.sample_hypers(
             self.state, self.options, self._generator(seed), n, nburn,
-            self._norm_params(params), n_chains=n_chains,
+            params, n_chains=n_chains,
             prior_std=margm._PRIOR_STD if prior_std is None else prior_std,
         )
 

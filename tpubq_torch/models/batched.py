@@ -521,7 +521,7 @@ def _marg_scores(states: BQState, opts: BQOptions, grid, thetas) -> torch.Tensor
     """(B, G) ESM of each problem averaged over its own rows of ``thetas``
     (B, S, p): S_chunk rows of every problem are installed at once and the
     B·S_chunk re-anchored states scored as one flattened fleet; each
-    problem's scores are summed over its rows in order."""
+    problem's scores are summed over its rows."""
     B = _require_batched(states)
     dtype, dev = states.x_s.dtype, states.x_s.device
     thetas = torch.as_tensor(thetas, dtype=dtype, device=dev)
@@ -536,9 +536,7 @@ def _marg_scores(states: BQState, opts: BQOptions, grid, thetas) -> torch.Tensor
         c = th.shape[1]
         st = bqm.apply_hyper_sample(states, opts, th)
         flat = bqm.tree_map(lambda a: a.expand(B, c, *a.shape[2:]).reshape(B * c, *a.shape[2:]), st)
-        esm = expected_squared_mean_batch(flat, opts, grid).reshape(B, c, G)
-        for k in range(c):
-            total = total + esm[:, k]
+        total = total + expected_squared_mean_batch(flat, opts, grid).reshape(B, c, G).sum(1)
     return total / S
 
 
@@ -683,18 +681,12 @@ class BQFleet:
 
     fit_hypers = fit
 
-    @staticmethod
-    def _norm_params(params):
-        if params is not None and not isinstance(params, tuple):
-            params = (params,) if isinstance(params, str) else tuple(params)
-        return params
-
     def sample_hypers(self, params=None, n: int = 100, nburn: int = 10, seed=None,
                       n_chains: int = 1, prior_std: float = None) -> np.ndarray:
         """(B, n, p) per-problem hyper-posterior draws (``BQ.sample_hypers``
         per fleet member; all chains of the fleet in one lock-step sampler)."""
         return _np(sample_hypers_batch(self._states, self.options, self._generator(seed), n,
-                                       nburn=nburn, params=self._norm_params(params),
+                                       nburn=nburn, params=params,
                                        n_chains=n_chains, prior_std=prior_std))
 
     def marginalize(self, funs=None, n: int = 100, params=None, seed=None,
@@ -702,7 +694,7 @@ class BQFleet:
         """Per-problem hyper-marginalized estimates: tuple of (B, n) arrays
         (``BQ.marginalize`` per fleet member, one batched refit)."""
         thetas = sample_hypers_batch(self._states, self.options, self._generator(seed), n,
-                                     params=self._norm_params(params), prior_std=prior_std)
+                                     params=params, prior_std=prior_std)
         named = {"Z_mean": bqm.Z_mean, "Z_var": bqm.Z_var}
         funs = None if funs is None else tuple(named.get(f, f) for f in funs)
         return tuple(_np(o) for o in marginalize_batch(self._states, self.options, thetas, funs))

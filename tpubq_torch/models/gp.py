@@ -55,6 +55,42 @@ def _gram(kfn: Callable, theta, s, x, mask):
     return K + eye * (s * s)[..., None, None] * mask.to(K.dtype)[..., None, :]
 
 
+def _fixed_factor_fn(kfn: Callable, s, x, mask, jitter: float, kernel: bool):
+    """θ → (θ, L, absolute jitter): the fixed-jitter factor of the masked Gram
+    (``_gram``, then ``linalg.cholesky_fixed``), with the terms that depend
+    only on the data (the noise diagonal, the mask's) formed once."""
+    s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
+    eye = torch.eye(x.shape[-2], dtype=x.dtype, device=x.device)
+    noise = eye * (s * s)[..., None, None] * mask.to(x.dtype)[..., None, :]
+    factor = linalg.cholesky_fixed_fn(mask, x.dtype, jitter, kernel)
+
+    def fn(theta):
+        theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
+        L, jit = factor(kfn(theta, x, x) + noise)
+        return theta, L, jit
+
+    return fn
+
+
+def fixed_fit_fn(kfn: Callable, s, x, y, mask, base_jitter: float = 1e-12, kernel: bool = False):
+    """θ → ``gp_fit(kfn, θ, s, x, y, mask, base_jitter, need_kinv=False,
+    ladder=False)``, with the data's terms formed once (the joint slice
+    sampler re-anchors the candidates every lock-step iteration). ``kernel``:
+    see ``linalg.cholesky_fixed_fn``."""
+    gram = _fixed_factor_fn(kfn, s, x, mask, base_jitter, kernel)
+    s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
+    ym = torch.where(mask, y, 0.0)
+
+    def fit(theta) -> GPState:
+        theta, L, jit = gram(theta)
+        ok = torch.isfinite(L).all(-1).all(-1)
+        alpha = linalg.chol_solve_vec(L, ym)
+        alpha = torch.where(ok[..., None], alpha, float("nan"))
+        return GPState(theta, s, x, ym, mask, L, alpha, None, jit, ok)
+
+    return fit
+
+
 def gp_fit(
     kfn: Callable,
     theta,
@@ -70,7 +106,7 @@ def gp_fit(
 
     ``ladder=True`` factors through the escalating jitter ladder (the
     estimation paths); ``ladder=False`` through one fixed-jitter factor
-    (``linalg.cholesky_fixed``, the joint sampler's re-anchoring), with
+    (``fixed_fit_fn``, the joint sampler's re-anchoring), with
     ``jitter`` recorded in absolute units, ``base_jitter`` times the mean live
     diagonal, and ``ok`` meaning every entry of the factor is finite.
 
@@ -83,15 +119,13 @@ def gp_fit(
     substitution and K⁻¹ = YᵀY from Y = L⁻¹, all three on
     ``tri_solve_blocked`` (``linalg``).
     """
+    if not ladder:
+        gp = fixed_fit_fn(kfn, s, x, y, mask, base_jitter)(theta)
+        return gp._replace(Kinv=linalg.chol_inverse(gp.L)) if need_kinv else gp
     theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
     s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
     K = _gram(kfn, theta, s, x, mask)
-    if ladder:
-        L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
-    else:
-        L = linalg.cholesky_fixed(K, mask, base_jitter)
-        jit_used = base_jitter * linalg._diag_scale(K, mask)
-        ok = torch.isfinite(L).all(-1).all(-1)
+    L, jit_used, ok = linalg.jitter_cholesky(K, mask, base_jitter)
     ym = torch.where(mask, y, torch.zeros_like(y))
     alpha = linalg.chol_solve_vec(L, ym)
     Kinv = linalg.chol_inverse(L) if need_kinv else None
@@ -127,18 +161,25 @@ def gp_var(kfn: Callable, kdiagfn: Callable, gp: GPState, xo) -> torch.Tensor:
     return kdiagfn(gp.theta, xo) - (v * v).sum(-2)
 
 
+def log_mll_fn(kfn: Callable, s, x, mask, jitter: float = 1e-12, kernel: bool = False):
+    """(θ, y) → ``log_mll(kfn, θ, s, x, y, mask, jitter)``, with the data's
+    terms formed once: the slice sampler evaluates it every lock-step
+    iteration. ``kernel``: see ``linalg.cholesky_fixed_fn``."""
+    gram = _fixed_factor_fn(kfn, s, x, mask, jitter, kernel)
+    const = mask.to(x.dtype).sum(-1) * _LOG2PI
+
+    def mll(theta, y):
+        _, L, _ = gram(theta)
+        ym = torch.where(mask, y, 0.0)
+        alpha = linalg.chol_solve_vec(L, ym)
+        return -0.5 * ((ym * alpha).sum(-1) + linalg.masked_logdet(L, mask) + const)
+
+    return mll
+
+
 def log_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torch.Tensor:
     """Masked log marginal likelihood −½yᵀK⁻¹y − ½log|K| − (n_live/2) log 2π."""
-    theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
-    s = torch.as_tensor(s, dtype=x.dtype, device=x.device)
-    K = _gram(kfn, theta, s, x, mask)
-    L = linalg.cholesky_fixed(K, mask, jitter)
-    ym = torch.where(mask, y, torch.zeros_like(y))
-    alpha = linalg.chol_solve_vec(L, ym)
-    n_live = mask.to(x.dtype).sum(-1)
-    quad = (ym * alpha).sum(-1)
-    logdet = linalg.masked_logdet(L, mask)
-    return -0.5 * (quad + logdet + n_live * _LOG2PI)
+    return log_mll_fn(kfn, s, x, mask, jitter)(theta, y)
 
 
 def fit_log_mll(gp: GPState) -> torch.Tensor:

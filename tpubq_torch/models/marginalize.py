@@ -83,45 +83,48 @@ def slice_sample(gen: torch.Generator, logpdf: Callable, u0, n: int, nburn: int 
 
     def lp_of(v):
         slice_sample.evaluations += 1
-        lp = logpdf(v)
-        return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -math.inf))
+        return torch.nan_to_num(logpdf(v), nan=-math.inf, posinf=-math.inf)
 
+    # a step-out moves the left edges by −width and the right ones by +width
+    step = torch.tensor([[-width], [width]], dtype=dtype, device=dev)
+    # u with coordinate j set to x is where(at[j], x, u)
+    at = {j: torch.arange(p, device=dev) == j for j in coords}
     lp = lp_of(u)
     out = []
     for it in range(sweeps):
         for k, j in enumerate(coords):
+            at_j = at[j]
             unif = uniforms[:, it, k]
             logy = lp + torch.log(unif[:, 0])
             x0 = u[:, j]
             left = x0 - unif[:, 1] * width
-            right = left + width
-            # step-out: both sides of every row in one batch of 2R rows
+            # step-out: both edges of every row in one batch of 2R rows
+            edge = torch.stack([left, left + width])
             go = torch.ones((2, R), dtype=torch.bool, device=dev)
             for _ in range(_MAX_STEPOUT):
-                f = lp_of(_set_coord(u.expand(2, R, p), j, torch.stack([left, right])))
-                go = go & (f > logy)
-                left = torch.where(go[0], left - width, left)
-                right = torch.where(go[1], right + width, right)
+                go = go & (lp_of(torch.where(at_j, edge[..., None], u)) > logy)
+                edge = torch.where(go, edge + step, edge)
                 slice_sample.host_reads += 1
                 if not bool(go.any()):
                     break
-            # shrink
+            left, right = edge[0], edge[1]
+            # shrink; rows already done keep their (x1, lp1) and bracket
             x1, lp1 = x0, lp
             done = torch.zeros(R, dtype=torch.bool, device=dev)
             for s in range(_MAX_SHRINK):
                 xc = left + unif[:, 2 + s] * (right - left)
-                lpc = lp_of(_set_coord(u, j, xc))
+                lpc = lp_of(torch.where(at_j, xc[:, None], u))
                 acc = ~done & (lpc >= logy)
                 x1 = torch.where(acc, xc, x1)
                 lp1 = torch.where(acc, lpc, lp1)
-                miss = ~done & ~acc
-                left = torch.where(miss & (xc < x0), xc, left)
-                right = torch.where(miss & (xc >= x0), xc, right)
                 done = done | acc
+                below = xc < x0
+                left = torch.where(~done & below, xc, left)
+                right = torch.where(~done & ~below, xc, right)
                 slice_sample.host_reads += 1
                 if bool(done.all()):
                     break
-            u = _set_coord(u, j, x1)
+            u = torch.where(at_j, x1[:, None], u)
             lp = lp1
         if it >= nburn:
             out.append(u)
@@ -256,28 +259,30 @@ def log_density(state: BQState, opts: BQOptions, sample_l: bool = False,
 
     def prior_and_mask(u, mll):
         tot = mll - 0.5 * ((u / prior_std) ** 2).sum(-1)
-        return torch.where(torch.isfinite(tot), tot, torch.full_like(tot, -math.inf))
+        return torch.nan_to_num(tot, nan=-math.inf, posinf=-math.inf)
 
+    # The data's terms of both MLLs are formed once here, not per evaluation;
+    # ``kernel=True``: a float32 stack on the card factors on ``chol_batch``.
     if not sample_l:
+        mll_tl = gpm.log_mll_fn(kfn, gp_tl.s, st.x_s, st.obs_mask, jitter, kernel=True)
+
         def logpdf(u):
-            mll = gpm.log_mll(kfn, torch.exp(u), gp_tl.s, st.x_s, st.tl_s, st.obs_mask, jitter)
-            return prior_and_mask(u, mll)
+            return prior_and_mask(u, mll_tl(torch.exp(u), st.tl_s))
 
         return logpdf
 
-    l_s = torch.where(st.obs_mask, st.l_s, torch.zeros_like(st.l_s))
-    x_sc, sc_mask = st.x_sc, st.sc_mask
+    fit_tl = gpm.fixed_fit_fn(kfn, gp_tl.s, st.x_s, st.tl_s, st.obs_mask, jitter, kernel=True)
+    mll_l = gpm.log_mll_fn(kfn, gp_l.s, st.x_sc, st.sc_mask, jitter, kernel=True)
+    l_s = torch.where(st.obs_mask, st.l_s, 0.0)
 
     def logpdf(u):
-        theta_tl, theta_l = torch.exp(u[..., :p_tl]), torch.exp(u[..., p_tl:])
-        gp_tl_u = gpm.gp_fit(kfn, theta_tl, gp_tl.s, st.x_s, st.tl_s, st.obs_mask, base_jitter=jitter,
-                             need_kinv=False, ladder=False)
-        mll_tl = gpm.fit_log_mll(gp_tl_u)  # log_mll under θ_tl, from the same fixed-jitter factor
+        gp_tl_u = fit_tl(torch.exp(u[..., :p_tl]))
         m_tl_c = gpm.gp_mean(kfn, gp_tl_u, st.x_c)
-        l_c = torch.where(st.c_mask, st.gamma[..., None] * torch.expm1(m_tl_c), torch.zeros_like(m_tl_c))
+        l_c = torch.where(st.c_mask, st.gamma[..., None] * torch.expm1(m_tl_c), 0.0)
         l_sc = torch.cat([l_s.expand(*l_c.shape[:-1], -1), l_c], dim=-1)
-        mll_l = gpm.log_mll(kfn, theta_l, gp_l.s, x_sc, l_sc, sc_mask, jitter)
-        return prior_and_mask(u, mll_tl + mll_l)
+        # the log-GP's MLL from the same fixed-jitter factor as the re-anchoring
+        mll = gpm.fit_log_mll(gp_tl_u) + mll_l(torch.exp(u[..., p_tl:]), l_sc)
+        return prior_and_mask(u, mll)
 
     return logpdf
 
@@ -289,9 +294,10 @@ def sample_hypers(state: BQState, opts: BQOptions, gen: torch.Generator, n: int,
     (n, p) for a single state, (B, n, p) for a fleet state, on the state's
     device in its dtype.
 
-    ``params`` names the hypers that move (default: every θ_tl hyper); the
-    rest stay at their current values. Plain names (``h``, ``w``) sample θ_tl
-    and give p = p_tl; any ``*_l`` name samples the joint posterior over
+    ``params``, a name or a sequence of names, names the hypers that move
+    (default: every θ_tl hyper); the rest stay at their current values.
+    Plain names (``h``, ``w``) sample θ_tl and give p = p_tl; any ``*_l``
+    name samples the joint posterior over
     (θ_tl, θ_l) and gives stacked rows, p = p_tl + p_l, which
     ``marginalize`` and ``choose_next`` take as they are. ``n_chains``
     chains per problem (see ``_run_chains``); a fleet's B·n_chains chains are
@@ -299,6 +305,8 @@ def sample_hypers(state: BQState, opts: BQOptions, gen: torch.Generator, n: int,
     """
     if params is None:
         params = tuple(sorted(_names_for(opts)))
+    elif isinstance(params, str):
+        params = (params,)
     coords, sample_l = param_coords(params, opts)
     u0 = torch.log(state.gp_log_l.theta)
     if sample_l:

@@ -26,6 +26,7 @@ from tpubq_torch.ops import hopper_kernels as hk
 __all__ = [
     "pad_gram",
     "cholesky_fixed",
+    "cholesky_fixed_fn",
     "posdef_cholesky",
     "posdef_cholesky_batched",
     "jitter_cholesky",
@@ -68,22 +69,40 @@ def _lib_cholesky(A: torch.Tensor) -> torch.Tensor:
     """Library Cholesky with NaN in each matrix that is not positive definite
     (no host sync: ``info`` is consumed on the device)."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L, float("nan"))
+
+
+def cholesky_fixed_fn(mask: torch.Tensor, dtype: torch.dtype, jitter: float = 1e-12,
+                      kernel: bool = False):
+    """``cholesky_fixed`` as a function K → (L, the absolute jitter), with the
+    terms that depend only on the mask formed once: the slice sampler factors
+    a new Gram of the same data every lock-step iteration.
+
+    ``kernel`` sends a float32 stack on the card that needs no gradient to
+    ``posdef_cholesky_batched`` (``chol_batch``); only the sampler's log
+    densities set it. Every other caller (the L-BFGS fit, its restart
+    scoring under ``no_grad`` too) factors with the library."""
+    m = mask.to(dtype)
+    eye = torch.eye(mask.shape[-1], dtype=dtype, device=mask.device)
+    mm = m[..., :, None] * m[..., None, :]
+    pad = eye * (1.0 - m)[..., None, :]
+    live = eye * m[..., None, :]
+    n_live = torch.clamp(m.sum(-1), min=1.0)
+
+    def factor(K: torch.Tensor):
+        jit = jitter * ((torch.diagonal(K, dim1=-2, dim2=-1) * m).sum(-1) / n_live)
+        Kp = K * mm + pad + jit[..., None, None] * live
+        if kernel and hk.kernel_route(Kp):
+            n = Kp.shape[-1]
+            return posdef_cholesky_batched(Kp.reshape(-1, n, n)).reshape(Kp.shape), jit
+        return _lib_cholesky(Kp), jit
+
+    return factor
 
 
 def cholesky_fixed(K: torch.Tensor, mask: torch.Tensor, jitter: float = 1e-12) -> torch.Tensor:
-    """Single masked Cholesky with a fixed relative jitter. On the kernel
-    route (float32 on the card, no gradient: the slice sampler's log
-    densities) every matrix of the stack goes to ``posdef_cholesky_batched``;
-    a factor that autograd must differentiate (the L-BFGS fit) stays with
-    the library."""
-    m = mask.to(K.dtype)
-    Kp = pad_gram(K, mask)
-    Kp = Kp + _eye(K) * (jitter * _diag_scale(K, mask))[..., None, None] * m[..., None, :]
-    if hk.kernel_route(Kp):
-        n = Kp.shape[-1]
-        return posdef_cholesky_batched(Kp.reshape(-1, n, n)).reshape(Kp.shape)
-    return _lib_cholesky(Kp)
+    """Single masked Cholesky with a fixed relative jitter (the library's)."""
+    return cholesky_fixed_fn(mask, K.dtype, jitter)(K)[0]
 
 
 def posdef_cholesky_batched(A: torch.Tensor) -> torch.Tensor:
@@ -228,4 +247,4 @@ def chol_inverse(L: torch.Tensor) -> torch.Tensor:
 def masked_logdet(L: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """log|K_live| from the padded factor (pads have L_ii = 1)."""
     d = torch.diagonal(L, dim1=-2, dim2=-1)
-    return 2.0 * torch.log(torch.where(mask, d, torch.ones_like(d))).sum(-1)
+    return 2.0 * torch.log(torch.where(mask, d, 1.0)).sum(-1)

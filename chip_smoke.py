@@ -47,14 +47,27 @@ before the final line):
               the float64 CPU port drew (held to its float64 estimates),
               BQ.marginalize, choose_next(grid, n=10) (held like the main
               path's picks); the fleet of phase 4 at its initial hypers:
-              BQFleet.sample_hypers(n=100), marginalize on the float64 CPU
-              fleet's rows (held to its estimates), BQFleet.marginalize,
+              BQFleet.sample_hypers(n=100), marginalize on the rows of the
+              float64 fleet (on the card since PR 11; held to its
+              estimates), BQFleet.marginalize,
               choose_next(grid, n=10) (the fleet kernels on the flattened
               fleet of 64 × 10 re-anchored states held to their plain
               versions, the picks to float64 by the fleet path's rule) and
               run_active_loop(n=10) for 3 steps; the sampler's host reads
               (at most one per lock-step iteration) and the exact launches
               of chol_batch, esm_fused and the fleet kernels per call.
+4c. families — the four other kernel families through the BQ facade on the
+              card in float32 at max_obs 32: matern52, matern32, rq and
+              periodic at d = 1 and matern52 at d = 2 (the mixture route),
+              each init → fit_hypers (10 restarts) → Z moments → 10 ×
+              (choose_next over 10⁴ points, 100 × 100 in 2-D →
+              add_observation) → marginalize (100 rows, 20 in 2-D), held to
+              the port's float64 path on the card with the card's hypers,
+              picks and the float64 sampler's rows; then a Matérn-5/2 fleet
+              at B = 64: fit → Z → 3 steps, held the same way per problem.
+              Each prints its routes, the launches of cholesky_blocked,
+              tri_solve_blocked and chol_batch per call kind, the walls of
+              the fit, a step and marginalize, and its resolution warnings.
 5. large N  — the large-max_obs path (benchmarks/large_n.py's recipe) at
               max_obs 128, 256, 512 and 1024: init_state → Z moments →
               run_active_loop (8 steps, incremental False, True, "auto") →
@@ -82,7 +95,8 @@ before the final line):
               sweep (ms per step at max_obs 64 … 1024) that
               INCREMENTAL_AUTO_WINDOW is read from.
 
-Then the kernel summary line, the nvidia-smi line, and the final
+Then the kernel summary line (each kernel with its launches on the main,
+marginalize and family paths), the nvidia-smi line, and the final
 {"ok": true, ...} line. Imports nothing from JAX or the JAX package.
 """
 
@@ -169,8 +183,12 @@ MAX_FLEET_FLIPS = 6
 FLEET_RAGGED = 37  # points past G in the ragged-grid case: the kernels' last block of 128 is cut
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line per phase; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": round(time.perf_counter() - _T0, 2), **kv}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1017,7 +1035,7 @@ def fleet_precision(dev) -> dict:
 def fleet_pick_gaps(st32, opts, st64, opts64, x_card, grid_dev, grid64):
     """``pick_gap`` for every problem of a fleet at once → (gap, err, resolved,
     f32 scores), the first three (B,). Plain versions only (no kernel launch);
-    the float64 scores on the CPU. A point counts as near an observation where
+    the float64 scores of the CPU's float64 state, computed on the card. A point counts as near an observation where
     the card's own float32 selection excluded it. gap and err are NaN where
     the pick is not a resolved point: the f32 scorer resolved none, or the
     plateau (zᵀα)² that every demoted point scores lies above all its resolved
@@ -1025,13 +1043,16 @@ def fleet_pick_gaps(st32, opts, st64, opts64, x_card, grid_dev, grid64):
     and the pick is the first admissible demoted point."""
     import torch
 
-    from tpubq_torch.models import acquire
+    from tpubq_torch.models import acquire, bq as bqm
 
     esm32, deg32, _ = fleet_scores_plain(st32, opts, grid_dev[:, None])
     dist = (grid_dev[None, :, None] - st32.x_s[:, None, :, 0]).abs()
     near = ((dist < opts.candidate_thresh) & st32.obs_mask[:, None, :]).any(-1).cpu()
     esm32, deg32 = esm32.double().cpu(), deg32.cpu()
-    esm64 = acquire.expected_squared_mean_xla(st64, opts64, grid64[:, None])
+    # the float64 scores on the card (the CPU takes 1–2 s a sweep of 64 problems)
+    dev = grid_dev.device
+    esm64 = acquire.expected_squared_mean_xla(bqm.tree_map(lambda a: a.to(dev), st64), opts64,
+                                              grid64.to(dev)[:, None]).cpu()
     ok = ~deg32 & ~near
     ninf = torch.full_like(esm64, -math.inf)
     best = torch.where(ok, esm64, ninf).amax(1)
@@ -1292,8 +1313,9 @@ def marginalize_path(dev) -> dict:
     docstring, phase 4b): the single problem's samplers (θ_tl with 1 and 4
     chains, joint rows), marginalize and choose_next(n = 10); the fleet's
     sampler, marginalize, choose_next(n = 10) and a marginalized loop at
-    B = 64, G = 10⁴. Estimates on rows the float64 CPU port drew are held to
-    the float64 CPU path; picks by ``marg_pick_gaps``; launches and host reads
+    B = 64, G = 10⁴. Estimates on rows the float64 port drew are held to
+    the float64 path (the single problem's on the CPU, the fleet's on the
+    card); picks by ``marg_pick_gaps``; launches and host reads
     are counted per call."""
     import torch
 
@@ -1333,15 +1355,18 @@ def marginalize_path(dev) -> dict:
     kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2,
               max_obs=FLEET_MAX_OBS, s=S_MAIN)
     fleet = BQFleet(xs, ls, device=dev, dtype="float32", **kw)
-    fleet64 = BQFleet(xs, ls, device="cpu", dtype="float64", **kw)
+    # the float64 fleet on the card: on the CPU its sampler and its 640
+    # re-anchored states' scores take ~20 s (the library routes only: a float64
+    # state launches none of the port's kernels)
+    fleet64 = BQFleet(xs, ls, device=dev, dtype="float64", **kw)
     fth = marg_call(lambda: fleet.sample_hypers(n=MARG_N, seed=31), calls, "fleet_sample_hypers")
     fzm_fac, fzv_fac = marg_call(lambda: fleet.marginalize(n=MARG_N, seed=32), calls, "fleet_marginalize_sampled")
     frows64 = torch.as_tensor(fleet64.sample_hypers(n=MARG_N, seed=33))
     fzm32, fzv32 = marg_call(lambda: batched.marginalize_batch(fleet.states, fleet.options,
                                                                frows64.to(dev, torch.float32)),
                              calls, "fleet_marginalize")
-    fleet_marg = marg_vs_f64(fzm32, fzv32, *batched.marginalize_batch(fleet64.states, fleet64.options, frows64,
-                                                                       funs64))
+    fleet_marg = marg_vs_f64(fzm32, fzv32, *(t.cpu() for t in batched.marginalize_batch(
+        fleet64.states, fleet64.options, frows64, funs64)))
     fx_pick = marg_call(lambda: fleet.choose_next(grid, n=MARG_CHOOSE_N, seed=34), calls, "fleet_choose_next_n10")
     loop_fleet = BQFleet.from_states(fleet.states, fleet.options)
     lik = lambda x: torch.exp(-0.5 * ((x[0] - MU_L) / SIG_L) ** 2) / (SIG_L * math.sqrt(2.0 * math.pi))  # noqa: E731
@@ -1376,7 +1401,7 @@ def marginalize_path(dev) -> dict:
     fesm32, fdeg32, _ = fleet_scores_plain(flat, fleet.options, grid_dev[:, None])
     fesm32 = fesm32.double().cpu().reshape(B, S, G).mean(1)
     fdeg32 = fdeg32.cpu().reshape(B, S, G).any(1)
-    fesm64 = batched._marg_scores(fleet64.states, fleet64.options, grid64, frows.double().cpu())
+    fesm64 = batched._marg_scores(fleet64.states, fleet64.options, grid64, frows.double()).cpu()
     dist = (grid_dev[None, :, None] - fleet.states.x_s[:, None, :, 0]).abs()
     fnear = ((dist < fleet.options.candidate_thresh) & fleet.states.obs_mask[:, None, :]).any(-1).cpu()
     fidx = (grid64[None, :] - torch.as_tensor(fx_pick[:, 0], dtype=torch.float64)[:, None]).abs().argmin(1)
@@ -1455,6 +1480,306 @@ def marginalize_path(dev) -> dict:
     return {"launches": total, "host_reads": res["sampler_host_reads_per_call"],
             "calls": calls, "l_max_abs_err": max(flat_case["max_abs_err"][n] for n in ("A", "B")),
             "tl_max_abs_err": max(flat_case["max_abs_err"][n] for n in ("m_a", "c_a"))}
+
+
+# ---------------------------------------------------------------------------
+# the other kernel families: matern52, matern32, rq and periodic through the
+# BQ facade (and a Matérn fleet) on the card
+# ---------------------------------------------------------------------------
+
+#: (kernel, d) of each single configuration; d = 2 takes the Gamma-mixture route.
+FAMILY_CONFIGS = (("matern52", 1), ("matern32", 1), ("rq", 1), ("periodic", 1), ("matern52", 2))
+#: (θ_tl, θ_l) at init: the testbed's hypers, with α = 2 for rq and a unit period.
+FAMILY_PARAMS = {"matern52": (PARAMS_TL, PARAMS_L), "matern32": (PARAMS_TL, PARAMS_L),
+                 "rq": (PARAMS_TL + (2.0,), PARAMS_L + (2.0,)), "periodic": ((0.7, 0.8, 1.0), (0.35, 0.8, 1.0))}
+FAMILY_MAX_OBS, FAMILY_N_OBS, FAMILY_STEPS = 32, 10, 10
+FAMILY_MARG_N = {1: 100, 2: 20}
+FAMILY_GRID_2D = 100  # points per axis of the d = 2 grid (10⁴ in all)
+FAMILY_WRAPPERS = ("cholesky_blocked", "tri_solve_blocked", "chol_batch")
+FAMILY_FLEET_KERNEL, FAMILY_FLEET_STEPS = "matern52", 3
+# float32 V[Z] is held to the float64 path at ZVAR_RTOL, as on the main path:
+# after a fit the float32 factors' own error (eps32 × the Gram's condition
+# number) reaches V[Z] through the closed form's αᵀTα − gᵀK⁻¹g cancellation,
+# 1.5e-3 on the CPU's float32 for Matérn-5/2. The closed form's 1e-4 pin of
+# tests/test_matern_zvar.py:92 (unfitted states) is held on the card by
+# tests/test_torch_gpu.py.
+
+
+def family_lik(kernel: str, x):
+    """The fixed likelihood of a family configuration: the testbed's
+    N(x; 0.2, 0.5²) in 1-D, N(x; (0.2, −0.1), 0.5² I) in 2-D, and for the
+    periodic kernel the periodic recipe of tests/test_periodic_exact.py,
+    exp(cos 2x)/8 + 0.05 (on the gaussian bump its fit settles on w ≈ 2.3, a
+    kernel so close to constant that float32 resolves no grid point)."""
+    x = np.asarray(x, np.float64)
+    if kernel == "periodic":
+        return np.exp(np.cos(2.0 * x)) / 8.0 + 0.05
+    if x.ndim == 0 or x.shape[-1] != 2:
+        return f_l(x)
+    r2 = ((x - np.array([0.2, -0.1])) ** 2).sum(-1) / SIG_L**2
+    return np.exp(-0.5 * r2) / (2.0 * math.pi * SIG_L**2)
+
+
+def family_data(d: int):
+    """(x, grid): 10 observations and a 10⁴-point grid (100 × 100 in 2-D)."""
+    if d == 1:
+        return testbed_x(False), np.linspace(-4.0, 4.0, G)[:, None]
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-2.0, 2.0, (FAMILY_N_OBS, 2))
+    g = np.linspace(-3.0, 3.0, FAMILY_GRID_2D)
+    return x, np.stack([a.ravel() for a in np.meshgrid(g, g, indexing="ij")], -1)
+
+
+def family_bq(kernel, d, x, device, dtype):
+    from tpubq_torch import BQ
+
+    bq = BQ(x, family_lik(kernel, x), device=device, dtype=dtype, kernel=kernel, max_obs=FAMILY_MAX_OBS, n_candidate=12,
+            candidate_thresh=0.2, x_mean=np.zeros(d), x_var=np.eye(d), s=S_MAIN)
+    return bq.init(params_tl=FAMILY_PARAMS[kernel][0] if d == 1 else (0.7, 0.8, 0.8),
+                   params_l=FAMILY_PARAMS[kernel][1] if d == 1 else (0.3, 0.4, 0.4))
+
+
+def family_counts() -> dict:
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    return {k: getattr(hk, k).launches for k in MARG_WRAPPERS}
+
+
+def family_pick_gaps(st32, opts, st64, opts64, x_card, grid32, grid64):
+    """``fleet_pick_gaps``' rule for a fleet state (or a single one with a
+    leading axis of 1) of any family, with the plain scorer: each pick
+    (``x_card`` (B, d)) is held to the float64 optimum over the points the
+    float32 scorer resolves away from the observations → (gap, err,
+    resolved), NaN where the pick is not such a point."""
+    import torch
+
+    from tpubq_torch.models import acquire
+
+    esm32 = acquire.expected_squared_mean_xla(st32, opts, grid32).double()
+    deg32 = acquire._esm_affine_terms(st32, opts, grid32)[2]
+    esm64 = acquire.expected_squared_mean_xla(st64, opts64, grid64).to(esm32.device)
+    dist = (grid32[None, :, None, :] - st32.x_s[:, None, :, :]).abs().amax(-1)
+    near = ((dist < opts.candidate_thresh) & st32.obs_mask[:, None, :]).any(-1)
+    ok = ~deg32 & ~near
+    best = torch.where(ok, esm64, torch.full_like(esm64, -math.inf)).amax(1)
+    xc = torch.as_tensor(np.asarray(x_card), dtype=grid32.dtype, device=grid32.device)
+    idx = (grid32[None, :, :] - xc[:, None, :]).abs().amax(-1).argmin(1)
+    at = esm64.gather(1, idx[:, None])[:, 0]
+    err = torch.where(ok, (esm32 - esm64).abs() / esm64.abs(), torch.zeros_like(esm64)).amax(1)
+    held = ok.gather(1, idx[:, None])[:, 0]
+    nan = torch.full_like(best, math.nan)
+    return torch.where(held, (best - at) / best, nan).cpu(), torch.where(held, err, nan).cpu(), ok.sum(1).cpu()
+
+
+def family_zvar_check(st32, opts, zv32, v64_path) -> dict:
+    """The float32 V[Z] of ``st32`` (a single or fleet state) against the
+    float64 path's ``v64_path`` (its own factors) at ZVAR_RTOL, per problem;
+    and, reported, against its own route's estimator evaluated in float64 on
+    the same float32 state (``estimator_rel``: the estimator's float32 error
+    alone)."""
+    import dataclasses
+
+    from tpubq_torch.models import bq as bqm
+
+    opts64 = dataclasses.replace(opts, dtype="float64")
+    st = bqm.tree_map(lambda a: a.double() if a.is_floating_point() else a, st32)
+    raw, gross = (np.atleast_1d(t.cpu().numpy()) for t in bqm._z_var_dispatch(opts)(st, opts64))
+    zv32 = np.atleast_1d(np.asarray(zv32, np.float64))
+    v64_path = np.atleast_1d(np.asarray(v64_path, np.float64))
+    v = np.maximum(raw, 0.0)
+    path_rel = float(np.max(np.abs(zv32 - v64_path) / v64_path))
+    return dict(path_rel=path_rel, estimator_rel=float(np.max(np.abs(zv32 - v) / v)),
+                gross_over_v=float(np.max(gross / v)), within=path_rel <= ZVAR_RTOL)
+
+
+def family_run(dev, kernel: str, d: int) -> dict:
+    """One family configuration through the BQ facade on the card in float32
+    (init → fit_hypers → Z → 10 × (choose_next → add_observation) →
+    marginalize), held to the port's float64 path on the card (the CPU's
+    float64 Matérn sweep at 100 rows takes a minute) on the same data, hypers,
+    picks and hyper rows."""
+    import warnings
+
+    import torch
+
+    from tpubq_torch.models import acquire, bq as bqm, gp as gpm, marginalize as margm
+    from tpubq_torch.ops import hopper_kernels as hk
+    from tpubq_torch.ops.kernels import get_kernel
+
+    x, grid = family_data(d)
+    grid32 = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    grid64 = torch.as_tensor(grid, dtype=torch.float64, device=dev)
+    zv_route = bqm._z_var_dispatch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        bq = family_bq(kernel, d, x, dev, "float32")
+        bq64 = family_bq(kernel, d, x, dev, "float64")
+        opts, opts64 = bq.options, bq64.options
+        for k in MARG_WRAPPERS:
+            getattr(hk, k).launches = 0
+        t0 = time.perf_counter()
+        bq.fit_hypers(ntry=FIT_RESTARTS, seed=FIT_SEED)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = family_counts()
+        zm0, zv0 = bq.Z_mean(), bq.Z_var()
+        step_s, steps = [], []
+        for _ in range(FAMILY_STEPS):
+            st32 = bq.state
+            c0, t1 = family_counts(), time.perf_counter()
+            xn = np.atleast_1d(bq.choose_next(grid if d > 1 else grid[:, 0]))
+            bq.add_observation(xn if d > 1 else float(xn[0]), float(family_lik(kernel, xn if d > 1 else xn[0])))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            steps.append((st32, xn, delta(c0, family_counts())))
+        zm1, zv1 = bq.Z_mean(), bq.Z_var()
+        c0, t1 = family_counts(), time.perf_counter()
+        zms, zvs = bq.marginalize(n=FAMILY_MARG_N[d], seed=4)
+        torch.cuda.synchronize()
+        marg_s = time.perf_counter() - t1
+        marg_launches = delta(c0, family_counts())
+        launches = family_counts()
+
+        # ---- the float64 reference on the card; none of this counts as the path's launches
+        kfn, _ = get_kernel(kernel)
+        st0 = bq64.state
+        th_tl, th_l = (t.to(dev, torch.float64) for t in (bq.state.gp_log_l.theta, bq.state.gp_l.theta))
+        mll = lambda th: float(gpm.log_mll(kfn, th, st0.gp_log_l.s, st0.x_s, st0.tl_s, st0.obs_mask, 1e-10))  # noqa: E731
+        fit_gain = mll(th_tl) - mll(st0.gp_log_l.theta)
+        bq64._state = bqm.set_params(st0, opts64, theta_tl=th_tl, theta_l=th_l)
+        z64_start = (bq64.Z_mean(), bq64.Z_var())
+        gaps, errs, resolved = [], [], []
+        for st32, xn, _ in steps:
+            g, e, n_ok = family_pick_gaps(bqm.tree_map(lambda a: a[None], st32), opts,
+                                          bqm.tree_map(lambda a: a[None], bq64.state), opts64,
+                                          xn[None, :], grid32, grid64)
+            gaps.append(float(g[0]))
+            errs.append(float(e[0]))
+            resolved.append(int(n_ok[0]))
+            bq64.add_observation(xn if d > 1 else float(xn[0]), float(family_lik(kernel, xn if d > 1 else xn[0])))
+        thetas = torch.as_tensor(bq64.sample_hypers(n=FAMILY_MARG_N[d], seed=7), device=dev)
+        zm32s, zv32s = margm.marginalize(bq.state, opts, thetas.float())
+        zm64s, zv64s = margm.marginalize(bq64.state, opts64, thetas)
+    warned = sorted({str(w.message) for w in caught if issubclass(w.category, UserWarning)})
+    zv_start = family_zvar_check(steps[0][0], opts, zv0, z64_start[1])
+    zv_end = family_zvar_check(bq.state, opts, zv1, bq64.Z_var())
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    marg_mean_rel = float(((zm32s.double() - zm64s).abs() / zm64s.abs()).max())
+    marg_var_rel = rel(float(zv32s.double().mean()), float(zv64s.mean()))
+    gap_ok = [math.isnan(g) or g <= max(ESM_ARGMAX_RTOL, 2.0 * e) for g, e in zip(gaps, errs)]
+    res = dict(
+        kernel=kernel, d=d, G=int(grid.shape[0]), max_obs=FAMILY_MAX_OBS, s=S_MAIN,
+        routes=dict(fit="lbfgs (autograd; the fused fit is gaussian-only)", esm=acquire.esm_route(bq.state, opts),
+                    z_var=zv_route(opts).__name__, z_var_f64=zv_route(opts64).__name__,
+                    int_K={"periodic": "harmonic series", "rq": "rq mixture"}.get(
+                        kernel, "erfcx closed form" if d == 1 else "matern mixture")),
+        theta_tl=th_tl.tolist(), theta_l=th_l.tolist(), fit_mll_gain=fit_gain,
+        fit_s=fit_s, step_s=step_s, step_s_median=float(np.median(step_s)), marginalize_s=marg_s,
+        launches=dict(fit=fit_launches, step=steps[0][2], marginalize=marg_launches, total=launches),
+        Z_mean_rel=max(rel(zm0, z64_start[0]), rel(zm1, bq64.Z_mean())), Z_var_start=zv_start, Z_var_end=zv_end,
+        Z_var_start_value=zv0, Z_var_end_value=zv1, pick_gaps=gaps, esm_f32_errs=errs, f32_resolved_points=resolved,
+        marg_n=FAMILY_MARG_N[d], marg_Z_mean_max_rel=marg_mean_rel, marg_Z_var_mean_rel=marg_var_rel,
+        marginalize_finite=bool(np.all(np.isfinite(zms)) and np.all(np.isfinite(zvs))),
+        warnings=warned, tol=dict(Z_mean=ZMEAN_RTOL, Z_var=ZVAR_RTOL, marg_mean=MARG_MEAN_RTOL,
+                                  esm_argmax=ESM_ARGMAX_RTOL))
+    emit("families_path", **res)
+    tag = f"{kernel} d={d}"
+    check(fit_gain >= 0.0, f"{tag}: the fit did not lower the log-GP's MLL ({fit_gain})")
+    check(res["Z_mean_rel"] <= ZMEAN_RTOL, f"{tag}: Z_mean f32 card vs f64 ({res['Z_mean_rel']})")
+    check(zv_start["within"] and zv_end["within"], f"{tag}: Z_var f32 card vs f64 ({zv_start}, {zv_end})")
+    check(all(gap_ok), f"{tag}: each pick is the f64 optimum over the resolved points ({gaps}, {errs})")
+    # a fitted periodic kernel whose period the data span leaves no point of
+    # the grid unresolved in phase: the float32 guard demotes them all (the
+    # float64 one about half), and the picks are the plateau's (gap NaN)
+    check(kernel == "periodic" or resolved[0] > 0, f"{tag}: the f32 scorer resolves points after the fit")
+    check(res["marginalize_finite"], f"{tag}: marginalize finite")
+    check(marg_mean_rel <= MARG_MEAN_RTOL, f"{tag}: marginalized E[Z] f32 vs f64 on the same rows ({marg_mean_rel})")
+    check(marg_var_rel <= ZVAR_RTOL, f"{tag}: marginalized mean V[Z] f32 vs f64 on the same rows ({marg_var_rel})")
+    check(all(launches[k] > 0 for k in FAMILY_WRAPPERS), f"{tag}: every factorization kernel launched {launches}")
+    check(launches["esm_fused"] == 0 and launches["gaussian_gram"] == 0 and launches["mll_grad_batched"] == 0,
+          f"{tag}: the gaussian-only kernels stay off the family path {launches}")
+    return res
+
+
+def family_fleet(dev) -> dict:
+    """The Matérn-5/2 fleet at B = 64 through BQFleet on the card: fit → Z →
+    3 × (choose_next → add_observation), held per problem to the float64
+    fleet on the card with the card's hypers and picks."""
+    import torch
+
+    from tpubq_torch import BQFleet
+    from tpubq_torch.models import bq as bqm
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    xs, ls, mus = fleet_data(FLEET_B, FLEET_N_OBS)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2, max_obs=FLEET_MAX_OBS,
+              s=S_MAIN, kernel=FAMILY_FLEET_KERNEL)
+    fleet = BQFleet(xs, ls, device=dev, dtype="float32", **kw)
+    fleet64 = BQFleet(xs, ls, device=dev, dtype="float64", **kw)
+    opts, opts64 = fleet.options, fleet64.options
+    grid = np.linspace(-4.0, 4.0, G)
+    grid32 = torch.as_tensor(grid, dtype=torch.float32, device=dev)[:, None]
+    grid64 = torch.as_tensor(grid, dtype=torch.float64, device=dev)[:, None]
+    for k in MARG_WRAPPERS:
+        getattr(hk, k).launches = 0
+    t0 = time.perf_counter()
+    fleet.fit(ntry=FIT_RESTARTS, seed=FIT_SEED)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = family_counts()
+    zm0, zv0 = fleet.Z_mean(), fleet.Z_var()
+    steps, step_s = [], []
+    for _ in range(FAMILY_FLEET_STEPS):
+        st32, t1 = fleet.states, time.perf_counter()
+        xn = fleet.choose_next(grid)
+        fleet.add_observation(xn, fleet_lik(xn[:, 0], mus))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        steps.append((st32, xn))
+    zm1, zv1 = fleet.Z_mean(), fleet.Z_var()
+    torch.cuda.synchronize()
+    launches = family_counts()
+
+    st64 = fleet64.states
+    fleet64._states = bqm.set_params(st64, opts64, theta_tl=fleet.states.gp_log_l.theta.double(),
+                                     theta_l=fleet.states.gp_l.theta.double())
+    zv_route = bqm._z_var_dispatch(opts)
+    zm64_0, zv64_0 = fleet64.Z_mean(), fleet64.Z_var()
+    gaps, errs = [], []
+    for st32, xn in steps:
+        g, e, _ = family_pick_gaps(st32, opts, fleet64.states, opts64, xn, grid32, grid64)
+        gaps.append(g)
+        errs.append(e)
+        fleet64.add_observation(xn, fleet_lik(xn[:, 0], mus))
+    gaps, errs = torch.stack(gaps), torch.stack(errs)
+    gap_ok = torch.isnan(gaps) | (gaps <= torch.clamp(2.0 * errs, min=ESM_ARGMAX_RTOL))
+    rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))  # noqa: E731
+    zv_start = family_zvar_check(steps[0][0], opts, zv0, zv64_0)
+    zv_end = family_zvar_check(fleet.states, opts, zv1, fleet64.Z_var())
+    res = dict(kernel=FAMILY_FLEET_KERNEL, B=FLEET_B, G=G, max_obs=FLEET_MAX_OBS, steps=FAMILY_FLEET_STEPS,
+               routes=dict(fit="lbfgs, all B·ntry rows in lock step", esm="plain batched",
+                           z_var=zv_route.__name__),
+               fit_s=fit_s, step_s=step_s, launches=dict(fit=fit_launches, total=launches),
+               Z_mean_rel=max(rel(zm0, zm64_0), rel(zm1, fleet64.Z_mean())), Z_var_start=zv_start, Z_var_end=zv_end,
+               pick_gap_max=float(torch.nan_to_num(gaps, nan=0.0).max()),
+               esm_f32_err_max=float(torch.nan_to_num(errs, nan=0.0).max()),
+               picks_on_the_plateau=int(torch.isnan(gaps).sum()))
+    emit("families_fleet", **res)
+    check(res["Z_mean_rel"] <= ZMEAN_RTOL, f"Matérn fleet Z_mean f32 card vs f64 ({res['Z_mean_rel']})")
+    check(zv_start["within"] and zv_end["within"], f"Matérn fleet Z_var f32 card vs f64 ({zv_start}, {zv_end})")
+    check(bool(gap_ok.all()), "each Matérn fleet pick is the f64 optimum over the resolved points")
+    check(launches["chol_batch"] > 0, f"the Matérn fleet refits through chol_batch {launches}")
+    check(bool(np.all(fleet.ns == FLEET_N_OBS + FAMILY_FLEET_STEPS)), "the Matérn fleet added its observations")
+    return res
+
+
+def families_path(dev) -> dict:
+    """Phase 4c: the four other kernel families (see the module docstring)."""
+    t0 = time.perf_counter()
+    runs = {f"{k}_d{d}": family_run(dev, k, d) for k, d in FAMILY_CONFIGS}
+    runs[f"fleet_{FAMILY_FLEET_KERNEL}"] = family_fleet(dev)
+    emit("families_elapsed", seconds=time.perf_counter() - t0)
+    return {name: r["launches"]["total"] for name, r in runs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2505,6 +2830,7 @@ def main() -> int:
     mp = main_path(dev)
     fp = fleet_path(dev)
     mg = marginalize_path(dev)
+    fam = families_path(dev)
     lp = large_n_path(dev)
     lf = large_fit(dev)
     esm_size_routes(dev)
@@ -2569,8 +2895,9 @@ def main() -> int:
              shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
     kernels += large_kernel_entries(lp, lk, lt)
-    for k in kernels:  # launches on the marginalize path (phase 4b)
+    for k in kernels:  # launches on the marginalize path (phase 4b) and each family's path (4c)
         k["marg_launches"] = mg["launches"][k["name"]]
+        k["families_launches"] = {run: n[k["name"]] for run, n in fam.items()}
     by_name = {k["name"]: k for k in kernels}
     by_name["chol_batch"].update(fleet_launches=fp["launches"]["chol_batch"],
                                  large_n_launches=lp["launches"]["chol_batch"],

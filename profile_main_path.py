@@ -33,7 +33,16 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 * ``large_marginalize`` — marginalize over 100 given θ_tl rows at max_obs
   1024 (the (200, 1024, 1024) rung stack on cholesky_batched);
 * ``large_fit_hypers`` — ``fit_hypers`` at max_obs 1024 on that recipe (10
-  restarts × 150 Adam steps over the mll_grad tiles).
+  restarts × 150 Adam steps over the mll_grad tiles);
+* ``family_step_<kernel>_d<d>`` / ``family_marginalize_<kernel>_d<d>`` — for
+  each configuration of chip_smoke.py's ``families_path`` (matern52,
+  matern32, rq, periodic at d = 1, matern52 at d = 2; float32, max_obs 32,
+  after the fit and three steps): one choose_next over its 10⁴-point grid
+  plus one add_observation, and marginalize over 100 given θ_tl rows (20 in
+  2-D); ``family_fit_matern52_d1`` — its ``fit_hypers`` (L-BFGS over
+  autograd, 10 restarts, both GPs); ``family_fleet_fit`` /
+  ``family_fleet_step`` — the Matérn-5/2 fleet of 64 problems: ``fit`` (all
+  640 restart rows in one lock-step L-BFGS) and a step after it.
 
 For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
@@ -178,7 +187,79 @@ def main() -> int:
             profile_large_n(dev, args.iters, out, args.profiles)
         if want("large_fit_hypers"):
             profile_large_fit(dev, out, args.profiles)
+        if want("family"):
+            profile_families(dev, args.iters, out, want, args.profiles)
     return 0
+
+
+def profile_families(dev, iters: int, out, want, profiles: int = 1) -> None:
+    """The family pieces (module docstring) on chip_smoke.py's family
+    configurations."""
+    import torch
+
+    from tpubq_torch import BQFleet
+    from tpubq_torch.models import marginalize as margm
+
+    for kernel, d in cs.FAMILY_CONFIGS:
+        tag = f"{kernel}_d{d}"
+        if not want(f"family_step_{tag}", f"family_marginalize_{tag}", f"family_fit_{tag}"):
+            continue
+        x, grid = cs.family_data(d)
+        grid = grid if d > 1 else grid[:, 0]
+        bq = cs.family_bq(kernel, d, x, dev, "float32")
+        st0 = bq.state
+
+        def fit(bq=bq, st0=st0):
+            bq._state = st0
+            bq.fit_hypers(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
+
+        if tag == "matern52_d1" and want(f"family_fit_{tag}"):
+            profile_piece(f"family_fit_{tag}", fit, 1, out, profiles)
+        else:
+            fit()
+        lik = lambda xn, kernel=kernel, d=d: float(cs.family_lik(kernel, xn if d > 1 else float(xn)))  # noqa: E731
+        for _ in range(3):
+            xn = bq.choose_next(grid)
+            bq.add_observation(xn, lik(xn))
+        st = bq.state
+
+        def step(bq=bq, st=st, grid=grid, lik=lik):
+            bq._state = st
+            xn = bq.choose_next(grid)
+            bq.add_observation(xn, lik(xn))
+
+        rows = torch.as_tensor(bq.sample_hypers(n=cs.FAMILY_MARG_N[d], seed=7), device=dev)
+        if want(f"family_step_{tag}"):
+            profile_piece(f"family_step_{tag}", step, iters, out, profiles)
+        if want(f"family_marginalize_{tag}"):
+            profile_piece(f"family_marginalize_{tag}", lambda st=st, bq=bq: margm.marginalize(st, bq.options, rows),
+                          3, out, profiles)
+    if not want("family_fleet_fit", "family_fleet_step"):
+        return
+    xs, ls, mus = cs.fleet_data(cs.FLEET_B, cs.FLEET_N_OBS)
+    fleet = BQFleet(xs, ls, device=dev, dtype="float32", params_tl=cs.PARAMS_TL, params_l=cs.PARAMS_L,
+                    n_candidate=12, candidate_thresh=0.2, max_obs=cs.FLEET_MAX_OBS, s=cs.S_MAIN,
+                    kernel=cs.FAMILY_FLEET_KERNEL)
+    st0 = fleet.states
+    grid = np.linspace(-4.0, 4.0, cs.G)
+
+    def fleet_fit():
+        fleet._states = st0
+        fleet.fit(ntry=cs.FIT_RESTARTS, seed=cs.FIT_SEED)
+
+    if want("family_fleet_fit"):
+        profile_piece("family_fleet_fit", fleet_fit, 1, out, profiles)
+    else:
+        fleet_fit()
+    st = fleet.states
+
+    def fleet_step():
+        fleet._states = st
+        xn = fleet.choose_next(grid)
+        fleet.add_observation(xn, cs.fleet_lik(xn[:, 0], mus))
+
+    if want("family_fleet_step"):
+        profile_piece("family_fleet_step", fleet_step, iters, out, profiles)
 
 
 def profile_single(dev, grid, iters: int, out, want, profiles: int = 1) -> None:

@@ -261,6 +261,19 @@ def test_facade_checks_and_capacity_growth():
         bt.Z_mean()
 
 
+def test_float32_duplicate_observation_is_rejected_by_both_packages():
+    """The duplicate test runs in the state's dtype: float32 0.1 is the stored
+    x_s, so both packages reject it (the float64 test above cannot see this)."""
+    x, l = np.array([-1.0, 0.1, 1.0]), np.array([0.3, 0.9, 0.2])
+    kw = dict(dtype="float32", n_candidate=4, candidate_thresh=0.2, max_obs=8)
+    bj = tpubq.BQ(x, l, **kw).init(params_tl=tp.PARAMS_TL, params_l=tp.PARAMS_L)
+    bt = tpubq_torch.BQ(x, l, device="cpu", **kw).init(params_tl=tp.PARAMS_TL, params_l=tp.PARAMS_L)
+    for bq in (bj, bt):
+        with pytest.raises(ValueError, match="duplicate observation location"):
+            bq.add_observation(0.1, 0.99)
+        assert bq.ns == 3
+
+
 def test_default_device_is_the_card_and_the_cpu_must_be_asked_for(tmp_path):
     """Without ``device=`` the entry points address the CUDA card; on a
     machine without one they raise an error that names ``device="cpu"`` and

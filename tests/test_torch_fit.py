@@ -317,8 +317,10 @@ def test_random_restarts_rows_ranges_and_seed():
     assert np.median(w[:, 1]) / np.median(w[:, 0]) > 20.0  # tracks the 100x range ratio
     u2 = tfit.random_restarts(torch.Generator().manual_seed(0), theta0, x, y, mask, 64)
     np.testing.assert_array_equal(u.numpy(), u2.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfit.random_restarts(torch.Generator(), theta0, x, y, mask, 4, kernel="periodic")
+    # every family seeds (the periodic and rq ranges: tests/test_torch_families.py);
+    # an unknown family raises
+    with pytest.raises(ValueError, match="unknown kernel"):
+        tfit.random_restarts(torch.Generator(), theta0, x, y, mask, 4, kernel="cosine")
 
 
 # ---------------------------------------------------------------------------

@@ -1042,3 +1042,60 @@ def test_flattened_fleet_scorer(cuda, monkeypatch, B, S, G):
     a, b = flat.argmax(1), one.argmax(1)
     tie = (one.gather(1, a[:, None]) - one.gather(1, b[:, None])).abs()[:, 0] <= 1e-4 * one.abs().amax(1)
     assert bool(((a == b) | tie).all())
+
+
+# the other kernel families: plain torch Grams and integrals, the factorization kernels
+FAMILY_PARAMS = {"matern52": (PARAMS_TL, PARAMS_L), "matern32": (PARAMS_TL, PARAMS_L),
+                 "rq": (PARAMS_TL + (2.0,), PARAMS_L + (2.0,)), "periodic": ((0.7, 0.8, 1.0), (0.35, 0.8, 1.0))}
+
+
+@pytest.mark.parametrize("kernel,d", [("matern52", 1), ("matern32", 1), ("rq", 1), ("periodic", 1), ("matern52", 2)])
+def test_family_float32_on_the_card_matches_the_float64_plain_path(cuda, kernel, d):
+    """Each family in float32 on the card (its Grams and integrals plain
+    torch, its unbatched factors on cholesky_blocked, its solves on
+    tri_solve_blocked, a marginalize rung stack on chol_batch) against the
+    port's float64 path on the CPU on the same data and hypers: E[Z] at 1e-4,
+    V[Z] at 5e-2 (tests/test_torch_bq.py's float32 pins), the scores at 1e-3
+    of their largest where both dtypes' guards resolve the point, one
+    marginalize over 8 θ_tl rows; for Matérn also the
+    float32 closed-form V[Z] at 1e-4 on the recipe of
+    tests/test_matern_zvar.py:92 (as tests/test_torch_families.py holds it
+    on the CPU)."""
+    import tpubq_torch
+    from tpubq_torch.models import bq as bqm, marginalize as margm
+
+    rng = np.random.RandomState(1)
+    x = np.linspace(-2.2, 2.2, 10) if d == 1 else rng.uniform(-2.0, 2.0, (10, 2))
+    l = np.exp(-0.5 * np.sum((np.reshape(x, (10, d)) - 0.2) ** 2, -1) / 0.25) + 1e-3
+    ptl, pl = FAMILY_PARAMS[kernel] if d == 1 else ((0.7, 0.8, 0.8), (0.3, 0.4, 0.4))
+    kw = dict(kernel=kernel, max_obs=16, n_candidate=8, candidate_thresh=0.2, x_mean=np.zeros(d), x_var=np.eye(d),
+              s=0.01)
+    counts = {k: getattr(hk, k).launches for k in ("cholesky_blocked", "tri_solve_blocked", "chol_batch")}
+    bq = tpubq_torch.BQ(x, l, device=cuda, dtype="float32", **kw).init(params_tl=ptl, params_l=pl)
+    bq64 = tpubq_torch.BQ(x, l, device="cpu", dtype="float64", **kw).init(params_tl=ptl, params_l=pl)
+    np.testing.assert_allclose(bq.Z_mean(), bq64.Z_mean(), rtol=1e-4)
+    np.testing.assert_allclose(bq.Z_var(), bq64.Z_var(), rtol=5e-2)
+    if kernel.startswith("matern"):
+        X = np.sort(np.random.RandomState(0).uniform(-2.5, 2.5, (10, d)), axis=0)
+        L = np.exp(-0.5 * np.sum((X - 0.2) ** 2, -1) / 0.25)
+        zvs = []
+        for dev, dtype in ((cuda, "float32"), ("cpu", "float64")):
+            opts = BQOptions(kernel=kernel, dim=d, n_candidate=12, candidate_thresh=0.2, dtype=dtype)
+            st = bqm.init_state(X, L, opts, params_tl=(0.7,) + (0.8,) * d, params_l=(0.3,) + (0.4,) * d,
+                                x_mean=np.zeros(d), x_var=np.eye(d), device=dev)
+            zvs.append(float(bqm.Z_var(st, opts)))
+        assert abs(zvs[0] - zvs[1]) / zvs[1] < 1e-4, zvs
+    grid = np.linspace(-3.0, 3.0, 401) if d == 1 else rng.uniform(-3.0, 3.0, (400, 2))
+    e32, e64 = bq.expected_squared_mean(grid), bq64.expected_squared_mean(grid)
+    g = acquire.as_points(grid, d, torch.float32, cuda)
+    resolved = ~(acquire._esm_affine_terms(bq.state, bq.options, g)[2].cpu().numpy()
+                 | acquire._esm_affine_terms(bq64.state, bq64.options, g.double().cpu())[2].numpy())
+    assert resolved.sum() > 0  # points both scorers resolve (the guards differ by dtype)
+    assert np.max(np.abs(e32 - e64)[resolved]) <= 1e-3 * np.max(np.abs(e64))
+    thetas = np.exp(np.log(ptl) + 0.1 * rng.randn(8, len(ptl)))
+    zm_m, zv_m = margm.marginalize(bq.state, bq.options, torch.as_tensor(thetas, dtype=torch.float32, device=cuda))
+    zm_64, zv_64 = margm.marginalize(bq64.state, bq64.options, torch.as_tensor(thetas))
+    np.testing.assert_allclose(zm_m.cpu().numpy(), zm_64.numpy(), rtol=1e-3)
+    np.testing.assert_allclose(zv_m.double().mean().item(), zv_64.mean().item(), rtol=5e-2)
+    torch.cuda.synchronize()
+    assert all(getattr(hk, k).launches > n for k, n in counts.items()), counts

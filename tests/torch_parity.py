@@ -17,6 +17,15 @@ from tpubq_torch.utils.options import FIELD_NAMES
 
 PARAMS_TL = (0.7, 0.8)
 PARAMS_L = (0.3, 0.4)
+#: (θ_tl, θ_l) of each family at d = 1: the testbed's, with α = 2 for rq
+#: and (h, w, p) on the periodic recipe of tests/test_periodic_exact.py.
+FAMILY_PARAMS = {
+    "gaussian": (PARAMS_TL, PARAMS_L),
+    "matern52": (PARAMS_TL, PARAMS_L),
+    "matern32": (PARAMS_TL, PARAMS_L),
+    "rq": (PARAMS_TL + (2.0,), PARAMS_L + (2.0,)),
+    "periodic": ((0.7, 0.8, 1.0), (0.35, 0.8, 1.0)),
+}
 
 
 def options(**overrides):
@@ -25,14 +34,17 @@ def options(**overrides):
     return opts
 
 
-def make_pair(dtype="float64", n=10, x=None, l=None, params_tl=PARAMS_TL, params_l=PARAMS_L,
-              **overrides):
-    """(JAX BQ, port BQ) built from the same raw (x, l) and options."""
+def make_pair(dtype="float64", n=10, x=None, l=None, params_tl=None, params_l=None,
+              kernel="gaussian", **overrides):
+    """(JAX BQ, port BQ) built from the same raw (x, l) and options, with the
+    kernel family ``kernel`` (its ``FAMILY_PARAMS`` unless params are given)."""
     import tpubq_torch
 
     x = tu.make_x(n) if x is None else x
     l = tu.f_l(x) if l is None else l
-    opts = options(dtype=dtype, **overrides)
+    params_tl = FAMILY_PARAMS[kernel][0] if params_tl is None else params_tl
+    params_l = FAMILY_PARAMS[kernel][1] if params_l is None else params_l
+    opts = options(dtype=dtype, kernel=kernel, **overrides)
     bj = tpubq.BQ(x, l, **opts).init(params_tl=params_tl, params_l=params_l)
     bt = tpubq_torch.BQ(x, l, device="cpu", **opts).init(params_tl=params_tl, params_l=params_l)
     return bj, bt

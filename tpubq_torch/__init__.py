@@ -6,12 +6,15 @@ the log-likelihood and an exp-linearized GP on the likelihood, multi-restart
 hyperparameter fitting, ``Z_mean``/``Z_var``, expected-squared-mean scoring,
 ``choose_next``/``add_observation`` and the active loop (full refit or
 incremental updates), hyperparameter marginalization, and the fleet
-(``BQFleet``: B independent problems advanced together), for the gaussian
-kernel. Nine kernels are written by hand for Hopper (sm_90a) in ``csrc/``,
+(``BQFleet``: B independent problems advanced together), for the five kernel
+families: gaussian, periodic, Matérn-5/2, Matérn-3/2 and rational quadratic.
+Nine kernels are written by hand for Hopper (sm_90a) in ``csrc/``,
 one for each Pallas kernel of the JAX package: the fused ESM scorer, the two
 batched Choleskys, the fused MLL-and-gradient of the fit, the two halves of
 the fleet scorer, the gaussian Gram, and the blocked Cholesky and triangular
-solve of one large matrix.
+solve of one large matrix. The scorers, the fused fit and the Gram kernel are
+gaussian-only, as in the JAX package; the other families' Grams, integrals
+and scores are plain torch and run on the same factorization kernels.
 
 The entry points (``BQ``, ``BQFleet``, ``utils.convert``) run on the CUDA card unless the
 caller passes ``device="cpu"``, and raise where no card is there; the

@@ -70,7 +70,9 @@ class BQ:
         return self._state
 
     def init(self, params_tl=None, params_l=None):
-        """Construct both GPs (defaults: h = 1, w_j = 1)."""
+        """Construct both GPs (defaults: h = 1, w_j = 1, and the period or
+        α at 1), and warn where the hypers exceed the resolution of
+        ``n_series`` / ``n_gh`` (``_warn_resolution``)."""
         if params_tl is not None:
             bqm.validate_theta_values(params_tl, self.options, "params_tl")
         if params_l is not None:
@@ -80,7 +82,87 @@ class BQ:
             s_tl=self.s_tl, s_l=self.s_l, gamma=self._gamma0, x_mean=self._x_mean0,
             x_var=self._x_var0, device=self.device,
         )
+        self._warn_resolution()
         return self
+
+    def _warn_resolution(self, sampled=None, context=""):
+        """Warn where the hypers exceed the resolution that a static shape
+        fixes (the check runs on the host, where θ is concrete):
+
+        * periodic: every estimate uses the Jacobi–Anger series truncated at
+          ``n_series``, exact while n_series ≥ 8.5/w + 8
+          (``bq.periodic_series_floor``); the float32 V[Z] is the GH bilinear
+          form, whose ``n_gh`` must resolve the oscillation
+          (``bq.periodic_gh_floor``).
+        * rq: V[Z] is GH / QMC quadrature in both dtypes, whose node count
+          must resolve the kernel width under the measure (``bq.rq_gh_floor``);
+          the mixture rule of the single integrals is validated for
+          α ≥ ``bq.RQ_ALPHA_FLOOR``.
+
+        With no argument (at init and after the fit) the current two θs are
+        checked. ``sampled``: an (n, p) batch of hyper rows (θ_tl, or joint
+        θ_tl ∥ θ_l) that ``sample_hypers`` / ``marginalize`` /
+        ``choose_next(n > 0)`` evaluate at; the warning names the fraction of
+        rows that exceed.
+        """
+        kernel = self.options.kernel
+        if kernel not in ("periodic", "rq") or self._state is None:
+            return
+        import warnings
+
+        st = self._state
+        if sampled is None:
+            rows = [_np(st.gp_log_l.theta), _np(st.gp_l.theta)]
+        else:
+            sampled = np.asarray(sampled)
+            p_tl = int(st.gp_log_l.theta.shape[0])
+            rows = list(sampled[:, :p_tl])
+            if sampled.shape[1] > p_tl:  # joint rows: θ_tl ∥ θ_l
+                rows += list(sampled[:, p_tl:])
+        tag = f" ({context})" if context else ""
+
+        def _batch_warn(floor_fn, have, what, fix):
+            needs = np.asarray([floor_fn(t) for t in rows])
+            bad = needs > have
+            if not np.any(bad):
+                return
+            frac = float(np.mean(bad))
+            worst = int(np.max(needs))
+            src = (
+                f"{frac:.0%} of the {len(rows)} hyper rows" if sampled is not None
+                else "the current hypers"
+            )
+            warnings.warn(
+                f"{src}{tag} exceed the {what} resolution: worst needs "
+                f"~{worst} but {fix}={have} — raise {fix} (estimates under "
+                f"those hypers carry quadrature/truncation error until then)",
+                stacklevel=3,
+            )
+
+        x_var = _np(st.x_var)
+        if kernel == "periodic":
+            _batch_warn(bqm.periodic_series_floor, self.options.n_series,
+                        "harmonic-series", "n_series")
+            if self.options.dtype == "float32":
+                _batch_warn(lambda t: bqm.periodic_gh_floor(t, x_var),
+                            self.options.n_gh, "float32-V[Z] GH", "n_gh")
+        else:  # rq
+            _batch_warn(lambda t: bqm.rq_gh_floor(t, x_var),
+                        self.options.n_gh, "V[Z] GH", "n_gh")
+            alphas = np.asarray([float(np.ravel(t)[-1]) for t in rows])
+            bad = alphas < bqm.RQ_ALPHA_FLOOR
+            if np.any(bad):
+                src = (
+                    f"{float(np.mean(bad)):.0%} of the {len(rows)} hyper rows"
+                    if sampled is not None else "the current hypers"
+                )
+                warnings.warn(
+                    f"{src}{tag} have rq shape α < {bqm.RQ_ALPHA_FLOOR} "
+                    f"(min {alphas.min():.3g}); the exact Gamma-mixture "
+                    f"integrals are validated for α ≥ {bqm.RQ_ALPHA_FLOOR} "
+                    f"(≤2e-9) and degrade to ~1e-5 absolute by α = 0.25",
+                    stacklevel=3,
+                )
 
     def _generator(self, seed=None) -> torch.Generator:
         if seed is None:
@@ -149,8 +231,10 @@ class BQ:
         Route: float32, the gaussian kernel, d = 1 and a fixed noise go
         through ``fit_params_fused`` (Adam over the ``mll_grad_batched``
         kernel: launched on a CUDA device, its plain twin on the CPU) at any
-        size, as the JAX package routes them; everything else through the
-        batched L-BFGS of ``fit_params`` / ``fit_params_with_noise``. The
+        size and whatever ``use_pallas`` says (the JAX package takes its fused
+        fit only with ``use_pallas`` on a TPU); everything else, every other
+        kernel family included, through the batched L-BFGS of ``fit_params``
+        / ``fit_params_with_noise``. The
         route is decided here from dtype and options; once chosen, a kernel
         that fails to build or launch raises.
         """
@@ -185,6 +269,7 @@ class BQ:
         if logger.isEnabledFor(logging.DEBUG):
             logger.debug("fit_hypers: theta_tl=%s (mll=%.4f) theta_l=%s (mll=%.4f)",
                          _np(theta_tl), float(mll_tl), _np(theta_l), float(mll_l))
+        self._warn_resolution()
         return self
 
     #: The JAX package's public spelling.
@@ -213,7 +298,9 @@ class BQ:
             )
         n = 100 if n is None else int(n)
         nburn = 10 if nburn is None else int(nburn)
-        return _np(self._sample(params, n, nburn, seed, prior_std, n_chains))
+        samples = _np(self._sample(params, n, nburn, seed, prior_std, n_chains))
+        self._warn_resolution(sampled=samples, context="sample_hypers")
+        return samples
 
     def marginalize(self, funs=None, n: int = 100, params=None, seed=None,
                     prior_std: float = None, stacked: bool = False):
@@ -225,6 +312,7 @@ class BQ:
         named = {"Z_mean": bqm.Z_mean, "Z_var": bqm.Z_var}
         funs = (bqm.Z_mean, bqm.Z_var) if funs is None else tuple(named.get(f, f) for f in funs)
         thetas = self._sample(params, n, 10, seed, prior_std)
+        self._warn_resolution(sampled=_np(thetas), context="marginalize")
         outs = tuple(_np(o) for o in margm.marginalize(self.state, self.options, thetas, funs))
         return np.stack(outs, axis=1) if stacked else outs
 
@@ -234,7 +322,10 @@ class BQ:
         over ``n`` hyper samples of the named ``params`` (θ_tl, or jointly
         with ``*_l`` names) when ``n`` > 0."""
         self._check_factorized()
-        hyper = self._sample(params, n, 10, seed, prior_std) if n and n > 0 else None
+        hyper = None
+        if n and n > 0:
+            hyper = self._sample(params, n, 10, seed, prior_std)
+            self._warn_resolution(sampled=_np(hyper), context="choose_next")
         x_best, _ = acquire.choose_next(self.state, self.options, x_a, hyper)
         x_best = _np(x_best)
         return x_best if self.options.dim > 1 else float(x_best[0])
@@ -244,7 +335,8 @@ class BQ:
         l_a = float(l_a)
         if not np.isfinite(l_a) or l_a <= 0:
             raise ValueError("l must be finite and positive")
-        x_arr = np.asarray(x_a, dtype=np.float64).reshape((self.options.dim,))
+        # in the state's dtype, as the duplicate test must see the stored x_s
+        x_arr = np.asarray(x_a, dtype=self.options.dtype).reshape((self.options.dim,))
         if np.min(np.max(np.abs(self.x_s - x_arr[None, :]), axis=1)) < 1e-10:
             raise ValueError("duplicate observation location")
         if self.ns >= self.options.max_obs:

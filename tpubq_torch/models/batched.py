@@ -29,7 +29,7 @@ flattened fleet of B·S_chunk problems through ``expected_squared_mean_batch``
 (the fleet kernels where ``fleet_scorer_supported``), then averages each
 problem's scores over its own rows before the selection.
 
-Not ported yet (ROADMAP.md, queue 1, item 4): ``BQFleet.health`` / ``save`` /
+Not ported yet (ROADMAP.md, queue 1, item 2): ``BQFleet.health`` / ``save`` /
 ``load``.
 """
 
@@ -71,7 +71,7 @@ __all__ = [
 #: single-problem scorer (``acquire._LAM_F32``).
 _LAM_F32 = acquire._LAM_F32
 
-_NOT_PORTED = "is not ported to tpubq_torch yet (ROADMAP.md, queue 1, item 4)"
+_NOT_PORTED = "is not ported to tpubq_torch yet (ROADMAP.md, queue 1, item 2)"
 
 
 def _shared_or_per_problem(v, B: int, d: int, what: str, per_problem_shape):
@@ -425,33 +425,33 @@ def fit_batch(states: BQState, opts: BQOptions, gen: torch.Generator, ntry: int 
     B·ntry restart rows of a GP in ONE ``mll_grad_batched`` call per Adam
     iteration (``fit_params_fused`` on the fleet's data) at any size, so a
     whole fleet fit is 2·(n_iter + 1) calls (``mll_grad_launches(n)`` launches
-    each). Everything else loops the problems over
-    ``fit_params`` / ``fit_params_with_noise``; the refits between and after
-    the two stages are batched either way.
+    each). Every other fixed-noise fit (the other kernel families, float64)
+    advances all B·ntry rows as one lock-step L-BFGS (``fit_params`` on the
+    fleet's data); a noise fit loops the problems over
+    ``fit_params_with_noise``. The refits between and after the two stages
+    are batched either way.
     """
     B = _require_batched(states)
 
     def stage(gp, x, y, mask):
         """Fitted (theta (B, p), s (B,) or None) of one GP over the fleet."""
-        if _fused_fit_ok(opts, fit_noise):
-            inits = fitm.random_restarts(gen, gp.theta, x, y, mask, ntry)
-            theta, _ = fitm.fit_params_fused(gp.theta, gp.s, x, y, mask, gen, inits,
-                                             free_mask=free_mask)
+        if not fit_noise:
+            inits = fitm.random_restarts(gen, gp.theta, x, y, mask, ntry, kernel=opts.kernel)
+            if _fused_fit_ok(opts, fit_noise):
+                theta, _ = fitm.fit_params_fused(gp.theta, gp.s, x, y, mask, gen, inits,
+                                                 free_mask=free_mask)
+            else:
+                theta, _ = fitm.fit_params(opts.kernel, gp.theta, gp.s, x, y, mask, gen, inits,
+                                           free_mask=free_mask)
             return theta, None
         thetas, ss = [], []
         for i in range(B):
-            if fit_noise:
-                th, s, _ = fitm.fit_params_with_noise(
-                    opts.kernel, gp.theta[i], gp.s[i], x[i], y[i], mask[i], gen,
-                    n_restart=ntry, free_mask=free_mask)
-                ss.append(s)
-            else:
-                inits = fitm.random_restarts(gen, gp.theta[i], x[i], y[i], mask[i], ntry,
-                                             kernel=opts.kernel)
-                th, _ = fitm.fit_params(opts.kernel, gp.theta[i], gp.s[i], x[i], y[i], mask[i],
-                                        gen, inits, free_mask=free_mask)
+            th, s, _ = fitm.fit_params_with_noise(
+                opts.kernel, gp.theta[i], gp.s[i], x[i], y[i], mask[i], gen,
+                n_restart=ntry, free_mask=free_mask)
             thetas.append(th)
-        return torch.stack(thetas), (torch.stack(ss) if fit_noise else None)
+            ss.append(s)
+        return torch.stack(thetas), torch.stack(ss)
 
     theta_tl, s_tl = stage(states.gp_log_l, states.x_s, states.tl_s, states.obs_mask)
     st = bqm.set_params(states, opts, theta_tl=theta_tl, s_tl=s_tl)
@@ -505,15 +505,22 @@ def marginalize_batch(states: BQState, opts: BQOptions, hyper_samples, funs=None
 
 #: Elements of the scorer's largest intermediate per chunk of
 #: ``choose_next_marg_batch``: B·S_chunk·G per output of the fleet kernels,
-#: B·S_chunk·G·max_nsc for the plain batched scorer.
+#: B·S_chunk·G·max(max_nsc, nodes) for the plain batched scorer, where
+#: ``bq.int_K_nodes`` counts the node axis of the mixture and series integrals
+#: on the grid.
 _MARG_CHUNK_ELEMS = 1 << 26
 
 
 def marg_chunk(B: int, S: int, G: int, opts: BQOptions) -> int:
     """Hyper rows per problem that ``choose_next_marg_batch`` re-anchors and
-    scores at a time: memory stays O(B·S_chunk·G) (times max_nsc on the plain
-    scorer) and B·S_chunk within the fleet kernels' launch limit."""
-    per_row = G * (8 if fleet_scorer_supported(opts) else opts.max_nsc)
+    scores at a time: memory stays O(B·S_chunk·G) (times max_nsc, or the
+    integrals' node axis, on the plain scorer) and B·S_chunk within the fleet
+    kernels' launch limit. The Matérn V[Z] sweep of ``marginalize_batch``
+    chunks its own rows and node pairs (``integrals.SWEEP_ELEMS``)."""
+    if fleet_scorer_supported(opts):
+        per_row = G * 8
+    else:
+        per_row = G * max(opts.max_nsc, bqm.int_K_nodes(opts))
     return max(1, min(S, _MARG_CHUNK_ELEMS // max(1, B * per_row), hk.FLEET_MAX_PROBLEMS // B))
 
 

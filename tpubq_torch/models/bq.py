@@ -1,4 +1,4 @@
-"""BQ functional core: state, exp-linearization and Z moments (gaussian kernel).
+"""BQ functional core: state, exp-linearization and Z moments.
 
 Counterpart of ``tpubq/models/bq.py``. The estimator state is a ``BQState``
 of statically padded tensors, so adding an observation or re-selecting
@@ -169,31 +169,84 @@ def _fit_gps(state: BQState, opts: BQOptions, need_kinv: bool = True, ladder: bo
 
 
 def theta_len(opts: BQOptions) -> int:
-    """Flat kernel-parameter length (h, w_1..w_d) of the gaussian family."""
+    """Flat kernel-parameter length of the configured family and dim:
+    (h, w, p) for periodic, (h, w_1..w_d, α) for rq, else (h, w_1..w_d)."""
     get_kernel(opts.kernel)
+    if opts.kernel == "periodic":
+        return 3
+    if opts.kernel == "rq":
+        return opts.dim + 2
     return opts.dim + 1
 
 
 def default_params(opts: BQOptions):
+    """Unit h and w per dimension, plus the family's shape parameter (period
+    or α) at 1."""
     return (1.0,) * theta_len(opts)
 
 
 def validate_theta(theta, opts: BQOptions, name="theta"):
-    """The flat parameter vector must have dim + 1 entries (h, w_1..w_d)."""
+    """The flat parameter vector must match the family: (h, w_1..w_d) for
+    gaussian and Matérn, (h, w_1..w_d, alpha) for rq, (h, w, p) for the
+    periodic kernel, which is 1-D only."""
     n = int(np.asarray(theta).reshape(-1).shape[0]) if np.ndim(theta) else 0
+    if opts.kernel == "periodic" and opts.dim != 1:
+        raise ValueError("periodic kernel is 1-D only")
     want = theta_len(opts)
     if n != want:
+        layout = {"periodic": "(h, w, p)", "rq": "(h, w_1..w_d, alpha)"}.get(opts.kernel, "(h, w_1..w_d)")
         raise ValueError(
             f"{name} for {opts.kernel} kernel in dim {opts.dim} must have "
-            f"{want} entries (h, w_1..w_d); got {n}"
+            f"{want} entries {layout}; got {n}"
         )
 
 
 def validate_theta_values(theta, opts: BQOptions, name="theta") -> None:
-    """Every entry is a finite, positive scale."""
+    """Every entry (h, w_j and the family's p / α) is a finite, positive scale."""
     v = np.asarray(theta, dtype=np.float64)
     if not np.all(np.isfinite(v)) or np.any(v <= 0.0):
         raise ValueError(f"{name} entries must be finite and > 0 (kernel scales); got {v}")
+
+
+def periodic_series_floor(theta) -> int:
+    """Harmonics the periodic closed forms need to be machine-exact: the
+    Jacobi–Anger coefficients a_n = e^{−z} I_n(z), z = 1/w², fall below
+    float64 resolution at n ≳ 8.5·√z, whatever the period. Host-side: the
+    facade warns when ``n_series`` is below it."""
+    w = float(np.asarray(theta, dtype=np.float64).ravel()[1])
+    return int(np.ceil(8.5 / w)) + 8
+
+
+def periodic_gh_floor(theta, x_var) -> int:
+    """Gauss–Hermite nodes a periodic kernel needs over N(·, x_var):
+    n_req = 32 · (σ / (p · min(1, w)))², σ² the measure's largest variance.
+    It governs only the float32 V[Z], the one periodic estimate on the GH
+    bilinear form; host-side, the facade warns when ``n_gh`` is below it."""
+    th = np.asarray(theta, dtype=np.float64).ravel()
+    w, p = float(th[1]), float(th[2])
+    v = np.atleast_2d(np.asarray(x_var, dtype=np.float64))
+    sigma = float(np.sqrt(np.max(np.linalg.eigvalsh(v))))
+    return int(np.ceil(32.0 * (sigma / (p * min(1.0, w))) ** 2))
+
+
+#: Validated lower edge of the rq Gamma-mixture rule (``integrals.rq_mix_rule``):
+#: ≤ 2e-9 absolute for α ∈ [0.5, 128], ~6e-6 at α = 0.25. The facade warns
+#: when current or sampled α drops below it.
+RQ_ALPHA_FLOOR = 0.5
+
+
+def rq_gh_floor(theta, x_var) -> int:
+    """Gauss–Hermite nodes the rq V[Z] quadrature needs over N(·, x_var):
+    max(128, 128 · (σ / w_min)²) per axis, to the power d for the tensor rule.
+    Host-side: the facade warns at init, after the fit and on sampled hyper
+    batches."""
+    th = np.asarray(theta, dtype=np.float64).ravel()
+    w_min = float(np.min(th[1:-1]))
+    v = np.atleast_2d(np.asarray(x_var, dtype=np.float64))
+    d = v.shape[-1]
+    sigma = float(np.sqrt(np.max(np.linalg.eigvalsh(v))))
+    per_axis = max(128, int(np.ceil(128.0 * (sigma / w_min) ** 2)))
+    return per_axis ** d
 
 
 def validate_measure(x_var) -> None:
@@ -372,9 +425,17 @@ def _measure_nodes(state: BQState, nodes1: np.ndarray):
 def _gh_nodes(state: BQState, opts: BQOptions):
     """Gauss–Hermite nodes/weights of N(x_mean, x_var) → ((..., m, d), (m,)):
     ``n_gh`` nodes in 1-D; a tensor rule with ceil(n_gh^(1/d)) nodes per axis
-    (floors 20 / 12 in 2-D / 3-D) rotated through chol(x_var) for d > 1."""
+    rotated through chol(x_var) for d > 1. Per-axis floors: 20 / 12 in 2-D /
+    3-D for the smooth families; the Matérn family's diagonal cusp defeats
+    GH's spectral convergence, so it gets 512 nodes in 1-D and 48 / 16 per
+    axis in 2-D / 3-D."""
     d = opts.dim
-    n_axis = opts.n_gh if d == 1 else max(int(np.ceil(opts.n_gh ** (1.0 / d))), {2: 20, 3: 12}.get(d, 8))
+    cusp = opts.kernel.startswith("matern")
+    if d == 1:
+        n_axis = max(opts.n_gh, 512) if cusp else opts.n_gh
+    else:
+        floor = {2: 48, 3: 16} if cusp else {2: 20, 3: 12}
+        n_axis = max(int(np.ceil(opts.n_gh ** (1.0 / d))), floor.get(d, 8))
     nodes1, w = _gh_rule(n_axis, d)
     return _measure_nodes(state, nodes1), torch.as_tensor(w, dtype=state.x_s.dtype, device=state.x_s.device)
 
@@ -389,10 +450,41 @@ def _qmc_nodes(state: BQState, opts: BQOptions, n: int):
     return _measure_nodes(state, z), w
 
 
+def _nu(opts: BQOptions) -> float:
+    return 2.5 if opts.kernel == "matern52" else 1.5
+
+
 def int_K_measure(state: BQState, opts: BQOptions, theta, x) -> torch.Tensor:
-    """∫ k(x', x_i) p(x') dx' for the gaussian kernel (closed form)."""
+    """∫ k(x', x_i) p(x') dx' for the configured kernel family: the gaussian
+    closed form; Matérn by the erfcx closed form in 1-D and the Gamma mixture
+    of gaussian closed forms for d ≥ 2; periodic by the Jacobi–Anger series
+    truncated at ``n_series``; rq by the Gamma mixture that follows α."""
+    mu, Sig = state.x_mean, state.x_var
+    if opts.kernel == "gaussian":
+        return igr.int_K(x, theta[..., 0], theta[..., 1:], mu, Sig)
+    if opts.kernel.startswith("matern"):
+        h, w = theta[..., 0], theta[..., 1:]
+        if opts.dim == 1:
+            fn = igr.int_K_matern52_1d if opts.kernel == "matern52" else igr.int_K_matern32_1d
+            return fn(x, h, w, mu, Sig)
+        return igr.int_K_matern_mixture(x, h, w, mu, Sig, _nu(opts))
+    if opts.kernel == "periodic":
+        return igr.int_K_periodic(x, theta[..., 0], theta[..., 1], theta[..., 2], mu, Sig, opts.n_series)
     get_kernel(opts.kernel)
-    return igr.int_K(x, theta[..., 0], theta[..., 1:], state.x_mean, state.x_var)
+    return igr.int_K_rq_mixture(x, theta[..., 0], theta[..., 1:-1], theta[..., -1], mu, Sig)
+
+
+def int_K_nodes(opts: BQOptions) -> int:
+    """Length of the node (or harmonic) axis ``int_K_measure`` forms per
+    point, times d where it forms a (…, node, point, d) tensor: 1 for the
+    closed forms."""
+    if opts.kernel == "periodic":
+        return opts.n_series
+    if opts.kernel == "rq":
+        return igr.RQ_MIX_NODES * opts.dim
+    if opts.kernel.startswith("matern") and opts.dim > 1:
+        return igr.matern_mix_nodes(_nu(opts)) * opts.dim
+    return 1
 
 
 def Z_mean(state: BQState, opts: BQOptions) -> torch.Tensor:
@@ -403,11 +495,22 @@ def Z_mean(state: BQState, opts: BQOptions) -> torch.Tensor:
 
 
 def _z_var_dispatch(opts: BQOptions):
-    """float32: the Gauss–Hermite (d ≤ 3) / Halton (d > 3) bilinear form —
-    the closed form's cancellation exceeds f32. float64: the closed form."""
+    """The pre-clamp terms function ``(state, opts) → (raw, gross)`` of V[Z]:
+
+    - float32 Matérn: the closed form (the GH cusp floor reads 1.6e-3 to
+      2e-1 where the closed form stays ≤ 7.5e-5);
+    - float32 gaussian, periodic and rq: the Gauss–Hermite (d ≤ 3) or Halton
+      (d > 3) bilinear form — the closed forms' cancellation exceeds f32;
+    - float64 gaussian, Matérn and periodic: the closed form;
+    - float64 rq: GH (d ≤ 3) or Halton, with the warned node floor
+      ``rq_gh_floor``.
+    """
     get_kernel(opts.kernel)
-    if opts.dtype == "float32":
-        return _z_var_gh_terms if opts.dim <= 3 else _z_var_qmc_terms
+    quad = _z_var_gh_terms if opts.dim <= 3 else _z_var_qmc_terms
+    if opts.kernel.startswith("matern"):
+        return Z_var_exact_terms
+    if opts.dtype == "float32" or opts.kernel == "rq":
+        return quad
     return Z_var_exact_terms
 
 
@@ -424,7 +527,10 @@ def Z_var_exact_terms(state: BQState, opts: BQOptions):
     V[Z] = term_mm + 2γ term_m + γ² term_0 with q = int_K(x_s; k_tl),
     Q = int_int_K(k_tl), P = int_K1_K2(x_sc, x_s), T = int_int_K1_K2(x_sc, x_sc),
     U = int_K1_int_K2(x_sc): term_0 = Q − qᵀK_tl⁻¹q, term_m = αᵀ(U − P K_tl⁻¹ q),
-    term_mm = αᵀ(T − P K_tl⁻¹ Pᵀ)α.
+    term_mm = αᵀ(T − P K_tl⁻¹ Pᵀ)α. The integral table follows the family:
+    the gaussian identities, the Matérn cross family (outer kernel mixed,
+    inner exact; x_sc is bound once so that T takes its symmetric sweep), or
+    the periodic harmonic series.
     """
     dtype = state.x_s.dtype
     mu, Sig = state.x_mean, state.x_var
@@ -437,13 +543,32 @@ def Z_var_exact_terms(state: BQState, opts: BQOptions):
     L_tl = state.gp_log_l.L
     x_sc = state.x_sc
 
-    q = igr.int_K(state.x_s, h_tl, w_tl, mu, Sig) * m_s
-    Q = igr.int_int_K(opts.dim, h_tl, w_tl, mu, Sig)
-    P = (igr.int_K1_K2(x_sc, state.x_s, h_l, w_l, h_tl, w_tl, mu, Sig)
-         * m_sc[..., :, None] * m_s[..., None, :])
-    T = (igr.int_int_K1_K2(x_sc, x_sc, h_l, w_l, h_tl, w_tl, mu, Sig)
-         * m_sc[..., :, None] * m_sc[..., None, :])
-    U = igr.int_K1_int_K2(x_sc, h_l, w_l, h_tl, w_tl, mu, Sig) * m_sc
+    if opts.kernel.startswith("matern"):
+        nu = _nu(opts)
+        q = int_K_measure(state, opts, th_tl, state.x_s)
+        Q = igr.int_int_K_matern(h_tl, w_tl, mu, Sig, nu)
+        P = igr.int_K1_K2_matern(x_sc, state.x_s, h_l, w_l, h_tl, w_tl, mu, Sig, nu)
+        T = igr.int_int_K1_K2_matern(x_sc, x_sc, h_l, w_l, h_tl, w_tl, mu, Sig, nu)
+        U = igr.int_K1_int_K2_matern(x_sc, h_l, w_l, h_tl, w_tl, mu, Sig, nu)
+    elif opts.kernel == "periodic":
+        t_l = (th_l[..., 0], th_l[..., 1], th_l[..., 2])
+        t_tl = (th_tl[..., 0], th_tl[..., 1], th_tl[..., 2])
+        ns = opts.n_series
+        q = igr.int_K_periodic(state.x_s, *t_tl, mu, Sig, ns)
+        Q = igr.int_int_K_periodic(*t_tl, mu, Sig, ns)
+        P = igr.int_K1_K2_periodic(x_sc, state.x_s, t_l, t_tl, mu, Sig, ns)
+        T = igr.int_int_K1_K2_periodic(x_sc, x_sc, t_l, t_tl, mu, Sig, ns)
+        U = igr.int_K1_int_K2_periodic(x_sc, t_l, t_tl, mu, Sig, ns)
+    else:
+        q = igr.int_K(state.x_s, h_tl, w_tl, mu, Sig)
+        Q = igr.int_int_K(opts.dim, h_tl, w_tl, mu, Sig)
+        P = igr.int_K1_K2(x_sc, state.x_s, h_l, w_l, h_tl, w_tl, mu, Sig)
+        T = igr.int_int_K1_K2(x_sc, x_sc, h_l, w_l, h_tl, w_tl, mu, Sig)
+        U = igr.int_K1_int_K2(x_sc, h_l, w_l, h_tl, w_tl, mu, Sig)
+    q = q * m_s
+    P = P * m_sc[..., :, None] * m_s[..., None, :]
+    T = T * m_sc[..., :, None] * m_sc[..., None, :]
+    U = U * m_sc
 
     beta = linalg.chol_solve_vec(L_tl, q)
     term0 = Q - _dot(q, beta)

@@ -10,7 +10,9 @@ keeps every scale positive without constraints. Two routes:
   optax's, the optimum is held to it.
 * ``fit_params_fused``: Adam over the ``mll_grad_batched`` kernel, one kernel
   launch per iteration for all restarts, no host sync inside the loop. The
-  float32 route for the 1-D gaussian kernel. Given a fleet's data, (P, n, 1),
+  float32 route for the 1-D gaussian kernel.
+
+Every other family (periodic, Matérn, rq) fits through the batched L-BFGS. Given a fleet's data, (P, n, 1),
   it fits all P problems at once: still one launch per iteration.
 
 Random draws come from an explicit CPU ``torch.Generator``, so a seed gives
@@ -43,8 +45,8 @@ def resolve_param_names(opts, p_len: int, params):
     """Hyper names of ``fit_hypers(params=...)`` → ``(fit_noise, free_mask)``.
 
     ``params``: None (every kernel hyper of the family free, noise fixed), a
-    single name, or a sequence of names from the kernel family's ("h", "w")
-    plus "s" (the observation noise). ``fit_noise`` says whether "s" was
+    single name, or a sequence of names from the kernel family's ("h", "w",
+    and "p" for periodic or "alpha" for rq) plus "s" (the observation noise). ``fit_noise`` says whether "s" was
     named; ``free_mask`` is None when every θ is free, else a (p_len,) bool
     tensor on the CPU (all False when only "s" was named). Unknown names raise
     with the valid list.
@@ -105,9 +107,12 @@ def _two_loop(g, S, Y, rho, gamma, order):
     return r
 
 
-def _run_restarts(obj: Callable, inits: torch.Tensor, n_iter: int):
+def _run_restarts(obj: Callable, inits: torch.Tensor, n_iter: int, groups: int = 1):
     """Minimize ``obj`` from every row of ``inits`` (R, p) at once →
-    (u_best, best value), non-finite restarts losing.
+    (u_best, best value), non-finite restarts losing. With ``groups`` > 1 the
+    rows are that many equal blocks (a fleet's problems, each with its own
+    restarts) and the best row of each block comes back →
+    ((groups, p), (groups,)).
 
     All restarts move in lockstep: one batched value-and-gradient per
     evaluation, a batched two-loop recursion over the last ``_HISTORY`` pairs,
@@ -170,20 +175,25 @@ def _run_restarts(obj: Callable, inits: torch.Tensor, n_iter: int):
 
     with torch.no_grad():
         vals = obj(u)
-    vals = torch.where(torch.isfinite(vals), vals, torch.full_like(vals, math.inf))
-    best = torch.argmin(vals)
-    return u[best], vals[best]
+    vals = torch.where(torch.isfinite(vals), vals, torch.full_like(vals, math.inf)).reshape(groups, -1)
+    best = torch.argmin(vals, dim=-1, keepdim=True)
+    u_best = torch.take_along_dim(u.reshape(groups, -1, p), best[..., None], dim=1)[:, 0]
+    val_best = torch.take_along_dim(vals, best, dim=1)[:, 0]
+    return (u_best[0], val_best[0]) if groups == 1 else (u_best, val_best)
 
 
-def _objective(kfn, s, x, y, mask, jitter, free_mask=None, u_frozen=None):
+def _objective(kfn, s, x, y, mask, jitter, free_mask=None, u_frozen=None, rows=None):
     """Negative masked log-MLL as a function of u = log θ, (R, p) → (R,).
     Coordinates outside ``free_mask`` are pinned to ``u_frozen``, so the
-    optimizer cannot move them."""
+    optimizer cannot move them. ``rows`` = (P, R): the rows are P problems'
+    R restarts each, against data with a leading problem axis and a
+    singleton row axis."""
 
     def obj(u):
         if free_mask is not None:
             u = torch.where(free_mask, u, u_frozen)
-        return -gpm.log_mll(kfn, torch.exp(u), s, x, y, mask, jitter)
+        theta = torch.exp(u) if rows is None else torch.exp(u).reshape(*rows, u.shape[-1])
+        return -gpm.log_mll(kfn, theta, s, x, y, mask, jitter).reshape(-1)
 
     return obj
 
@@ -193,17 +203,25 @@ def _objective(kfn, s, x, y, mask, jitter, free_mask=None, u_frozen=None):
 # ---------------------------------------------------------------------------
 
 
+def _live_count(mask, dtype):
+    return torch.clamp(mask.to(dtype).sum(-1), min=1.0)
+
+
 def _live_std(y, mask):
     """Standard deviation of the live targets (over the last axis), floored
     at 1e-6."""
     m = mask.to(y.dtype)
-    n_live = torch.clamp(m.sum(-1), min=1.0)
+    n_live = _live_count(mask, y.dtype)
     ymean = (y * m).sum(-1) / n_live
     return torch.sqrt(torch.clamp((m * (y - ymean[..., None]) ** 2).sum(-1) / n_live, min=1e-12))
 
 
-def _uniform(gen: torch.Generator, shape, lo: float, hi: float, like: torch.Tensor):
+def _uniform(gen: torch.Generator, shape, lo, hi, like: torch.Tensor):
+    """U(lo, hi) draws of ``shape`` in ``like``'s dtype and device; ``lo`` and
+    ``hi`` are numbers or tensors that broadcast against ``shape``."""
     r = torch.rand(shape, generator=gen, dtype=torch.float64, device=gen.device)
+    if torch.is_tensor(lo) or torch.is_tensor(hi):
+        return lo + (hi - lo) * r.to(dtype=like.dtype, device=like.device)
     return (lo + (hi - lo) * r).to(dtype=like.dtype, device=like.device)
 
 
@@ -213,15 +231,15 @@ def random_restarts(gen: torch.Generator, theta0, x, y, mask, n_restart: int,
 
     Row 0 is log θ0 (the incumbent). The others draw log h around the scale
     of the live targets, log(ystd) + U(−2, 2), and each log w_j around that
-    dimension's own live input range, log(range_j) + U(log 0.05, log 2).
-    With a leading problem axis on ``theta0``, ``x``, ``y`` and ``mask`` the
-    result is (P, n_restart, p), drawn in one call.
+    dimension's own live input range, log(range_j) + U(log 0.05, log 2). The
+    periodic family's w is unitless, log w ~ U(log 0.1, log 2), and its period
+    lies between the mean observation spacing and twice the range:
+    log p ~ U(log(range / (n_live − 1)), log(2·range)). The rq family's shape
+    α draws log α ~ U(log 0.5, log 4). With a leading problem axis on
+    ``theta0``, ``x``, ``y`` and ``mask`` the result is (P, n_restart, p),
+    drawn in one call.
     """
-    if kernel in ("periodic", "rq"):
-        raise NotImplementedError(
-            f"restart seeding for the {kernel!r} kernel is not ported yet "
-            "(ROADMAP.md, queue 1: other kernel families)"
-        )
+    get_kernel(kernel)
     theta0 = torch.as_tensor(theta0, dtype=x.dtype, device=x.device)
     big = torch.finfo(x.dtype).max
     live = mask[..., :, None]
@@ -234,9 +252,20 @@ def random_restarts(gen: torch.Generator, theta0, x, y, mask, n_restart: int,
     batch = tuple(x.shape[:-2])
     log_h = torch.log(_live_std(y, mask))[..., None, None] + _uniform(
         gen, (*batch, n_restart, 1), -2.0, 2.0, x)
-    log_w = torch.log(xr)[..., None, :] + _uniform(
-        gen, (*batch, n_restart, p - 1), math.log(0.05), math.log(2.0), x)
-    u = torch.cat([log_h, log_w], dim=-1)
+    if kernel == "periodic":
+        log_w = _uniform(gen, (*batch, n_restart, 1), math.log(0.1), math.log(2.0), x)
+        spacing = xr[..., 0] / torch.clamp(_live_count(mask, x.dtype) - 1.0, min=1.0)
+        log_p = _uniform(gen, (*batch, n_restart, 1), torch.log(spacing)[..., None, None],
+                         torch.log(2.0 * xr[..., 0])[..., None, None], x)
+        u = torch.cat([log_h, log_w, log_p], dim=-1)
+    else:
+        n_w = p - 2 if kernel == "rq" else p - 1
+        log_w = torch.log(xr)[..., None, :] + _uniform(
+            gen, (*batch, n_restart, n_w), math.log(0.05), math.log(2.0), x)
+        u = torch.cat([log_h, log_w], dim=-1)
+        if kernel == "rq":
+            log_a = _uniform(gen, (*batch, n_restart, 1), math.log(0.5), math.log(4.0), x)
+            u = torch.cat([u, log_a], dim=-1)
     u[..., 0, :] = torch.log(theta0)
     return u
 
@@ -274,14 +303,27 @@ def fit_params(
     ``n_restart_inits``: optional (R, p) log-space inits; by default 10
     ``random_restarts``. ``free_mask``: optional (p,) bool — only True
     coordinates are optimized, the rest come back bit-identical to ``theta0``.
+
+    A fleet: ``theta0`` (P, p), ``s`` (P,), ``x`` (P, n, d), ``y`` and
+    ``mask`` (P, n), inits (P, R, p) → ((P, p), (P,)). All P·R rows advance
+    in one lock-step L-BFGS, each on its own problem's data; each row's
+    trajectory is the one it takes alone.
     """
     kfn, _ = get_kernel(kernel)
     theta0 = _on(theta0, x)
     free_mask = _on(free_mask, x, torch.bool)
-    obj = _objective(kfn, s, x, y, mask, jitter, free_mask, torch.log(theta0))
     if n_restart_inits is None:
         n_restart_inits = random_restarts(gen, theta0, x, y, mask, 10, kernel=kernel)
-    u_best, val_best = _run_restarts(obj, _on(n_restart_inits, x), n_iter)
+    inits = _on(n_restart_inits, x)
+    if x.ndim == 3:
+        P, R, p = inits.shape
+        u_frozen = torch.log(theta0)[:, None, :].expand(P, R, p).reshape(P * R, p)
+        obj = _objective(kfn, _on(s, x).reshape(P, 1), x[:, None], y[:, None], mask[:, None], jitter,
+                         free_mask, u_frozen, rows=(P, R))
+        u_best, val_best = _run_restarts(obj, inits.reshape(P * R, p), n_iter, groups=P)
+    else:
+        obj = _objective(kfn, s, x, y, mask, jitter, free_mask, torch.log(theta0))
+        u_best, val_best = _run_restarts(obj, inits, n_iter)
     return _pin_frozen(torch.exp(u_best), theta0, free_mask), -val_best
 
 

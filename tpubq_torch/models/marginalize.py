@@ -215,7 +215,12 @@ def _run_chains(gen: torch.Generator, logpdf: Callable, u0, n: int, nburn: int, 
 
 
 def _names_for(opts: BQOptions):
-    """Reference hyper names → θ indices (gaussian: h, w_1..w_d)."""
+    """Reference hyper names → θ indices: h, w_1..w_d, and the family's
+    period ``p`` (periodic: (h, w, p)) or shape ``alpha`` (rq)."""
+    if opts.kernel == "periodic":
+        return {"h": (0,), "w": (1,), "p": (2,)}
+    if opts.kernel == "rq":
+        return {"h": (0,), "w": tuple(range(1, opts.dim + 1)), "alpha": (opts.dim + 1,)}
     return {"h": (0,), "w": tuple(range(1, opts.dim + 1))}
 
 

@@ -41,9 +41,8 @@ class BQOptions:
       max_obs: capacity for observations; the ``BQ`` facade doubles it when
         ``add_observation`` reaches it.
       dim: input dimensionality d.
-      kernel: covariance family. The port implements "gaussian"; the other
-        names are accepted so that JAX checkpoints parse, and raise
-        ``NotImplementedError`` where a kernel is evaluated.
+      kernel: covariance family: "gaussian", "periodic" (1-D), "matern52",
+        "matern32" or "rq" (``ops/kernels.py`` gives each one's parameters).
       dtype: "float64" (parity path) or "float32" (device path).
       base_jitter: relative diagonal conditioning added before factorizing.
       use_pallas: carried for checkpoint compatibility and not consulted (the
@@ -51,7 +50,7 @@ class BQOptions:
         float32 fit of the 1-D gaussian kernel, chosen by dtype and shape).
       n_gh: Gauss–Hermite nodes of the float32 V[Z] quadrature.
       n_qmc: Halton nodes for d > 3 quadratures.
-      n_series: carried for checkpoint compatibility (periodic kernels).
+      n_series: harmonics of the periodic kernel's Jacobi–Anger series.
     """
 
     n_candidate: int = 10

@@ -63,7 +63,10 @@ before the final line):
               (choose_next over 10⁴ points, 100 × 100 in 2-D →
               add_observation) → marginalize (100 rows, 20 in 2-D), held to
               the port's float64 path on the card with the card's hypers,
-              picks and the float64 sampler's rows; then a Matérn-5/2 fleet
+              picks and the float64 sampler's rows (and one pick at the init
+              hypers, before the fit, where float32 resolves points for
+              every family: the fitted periodic kernel leaves it none, so
+              its later picks are the plateau's); then a Matérn-5/2 fleet
               at B = 64: fit → Z → 3 steps, held the same way per problem.
               Each prints its routes, the launches of cholesky_blocked,
               tri_solve_blocked and chol_batch per call kind, the walls of
@@ -163,6 +166,9 @@ FIT_Z_RTOL = 5e-3  # E[Z] after the fit against the closed form (tests/test_fit.
 ZMEAN_RTOL, ZVAR_RTOL = 1e-4, 5e-2
 MARG_MEAN_RTOL = 1e-3
 ESM_ARGMAX_RTOL = 1e-5  # or twice the f32 scorer's own error on the step, if larger
+# float32 ESM scores against float64 on the points both dtypes' guards resolve,
+# relative to the largest float64 score (tests/test_torch_gpu.py's family pin)
+ESM_SCORE_RTOL = 1e-3
 
 # The fleet: 64 problems of benchmarks/fleet_esm.py's recipe on one shared grid.
 FLEET_B, FLEET_N_OBS, FLEET_MAX_OBS, FLEET_STEPS = 64, 8, 32, 10
@@ -1550,7 +1556,10 @@ def family_pick_gaps(st32, opts, st64, opts64, x_card, grid32, grid64):
     leading axis of 1) of any family, with the plain scorer: each pick
     (``x_card`` (B, d)) is held to the float64 optimum over the points the
     float32 scorer resolves away from the observations → (gap, err,
-    resolved), NaN where the pick is not such a point."""
+    resolved, score_err), gap and err NaN where the pick is not such a
+    point; score_err is the float32 scores' largest error on the points both
+    dtypes' guards resolve, over the largest float64 score (NaN where the
+    two share no resolved point)."""
     import torch
 
     from tpubq_torch.models import acquire
@@ -1558,6 +1567,7 @@ def family_pick_gaps(st32, opts, st64, opts64, x_card, grid32, grid64):
     esm32 = acquire.expected_squared_mean_xla(st32, opts, grid32).double()
     deg32 = acquire._esm_affine_terms(st32, opts, grid32)[2]
     esm64 = acquire.expected_squared_mean_xla(st64, opts64, grid64).to(esm32.device)
+    deg64 = acquire._esm_affine_terms(st64, opts64, grid64)[2].to(esm32.device)
     dist = (grid32[None, :, None, :] - st32.x_s[:, None, :, :]).abs().amax(-1)
     near = ((dist < opts.candidate_thresh) & st32.obs_mask[:, None, :]).any(-1)
     ok = ~deg32 & ~near
@@ -1568,28 +1578,19 @@ def family_pick_gaps(st32, opts, st64, opts64, x_card, grid32, grid64):
     err = torch.where(ok, (esm32 - esm64).abs() / esm64.abs(), torch.zeros_like(esm64)).amax(1)
     held = ok.gather(1, idx[:, None])[:, 0]
     nan = torch.full_like(best, math.nan)
-    return torch.where(held, (best - at) / best, nan).cpu(), torch.where(held, err, nan).cpu(), ok.sum(1).cpu()
+    both = ~deg32 & ~deg64
+    score_err = torch.where(both, (esm32 - esm64).abs(), torch.zeros_like(esm64)).amax(1) / esm64.abs().amax(1)
+    return (torch.where(held, (best - at) / best, nan).cpu(), torch.where(held, err, nan).cpu(), ok.sum(1).cpu(),
+            torch.where(both.any(1), score_err, nan).cpu())
 
 
-def family_zvar_check(st32, opts, zv32, v64_path) -> dict:
-    """The float32 V[Z] of ``st32`` (a single or fleet state) against the
-    float64 path's ``v64_path`` (its own factors) at ZVAR_RTOL, per problem;
-    and, reported, against its own route's estimator evaluated in float64 on
-    the same float32 state (``estimator_rel``: the estimator's float32 error
-    alone)."""
-    import dataclasses
-
-    from tpubq_torch.models import bq as bqm
-
-    opts64 = dataclasses.replace(opts, dtype="float64")
-    st = bqm.tree_map(lambda a: a.double() if a.is_floating_point() else a, st32)
-    raw, gross = (np.atleast_1d(t.cpu().numpy()) for t in bqm._z_var_dispatch(opts)(st, opts64))
+def family_zvar_check(zv32, v64_path) -> dict:
+    """The float32 V[Z] (a single value or one per fleet problem) against the
+    float64 path's ``v64_path`` (its own factors) at ZVAR_RTOL."""
     zv32 = np.atleast_1d(np.asarray(zv32, np.float64))
     v64_path = np.atleast_1d(np.asarray(v64_path, np.float64))
-    v = np.maximum(raw, 0.0)
     path_rel = float(np.max(np.abs(zv32 - v64_path) / v64_path))
-    return dict(path_rel=path_rel, estimator_rel=float(np.max(np.abs(zv32 - v) / v)),
-                gross_over_v=float(np.max(gross / v)), within=path_rel <= ZVAR_RTOL)
+    return dict(path_rel=path_rel, within=path_rel <= ZVAR_RTOL)
 
 
 def family_run(dev, kernel: str, d: int) -> dict:
@@ -1597,7 +1598,9 @@ def family_run(dev, kernel: str, d: int) -> dict:
     (init → fit_hypers → Z → 10 × (choose_next → add_observation) →
     marginalize), held to the port's float64 path on the card (the CPU's
     float64 Matérn sweep at 100 rows takes a minute) on the same data, hypers,
-    picks and hyper rows."""
+    picks and hyper rows. One pick at the init hypers, before the fit, is
+    held first: there float32 resolves points for every family, where a
+    fitted periodic kernel leaves it none."""
     import warnings
 
     import torch
@@ -1615,6 +1618,10 @@ def family_run(dev, kernel: str, d: int) -> dict:
         bq = family_bq(kernel, d, x, dev, "float32")
         bq64 = family_bq(kernel, d, x, dev, "float64")
         opts, opts64 = bq.options, bq64.options
+        one = lambda st: bqm.tree_map(lambda a: a[None], st)  # noqa: E731
+        x_init = np.atleast_1d(bq.choose_next(grid if d > 1 else grid[:, 0]))
+        init_pick = [float(v[0]) for v in family_pick_gaps(one(bq.state), opts, one(bq64.state), opts64,
+                                                           x_init[None, :], grid32, grid64)]
         for k in MARG_WRAPPERS:
             getattr(hk, k).launches = 0
         t0 = time.perf_counter()
@@ -1648,25 +1655,25 @@ def family_run(dev, kernel: str, d: int) -> dict:
         fit_gain = mll(th_tl) - mll(st0.gp_log_l.theta)
         bq64._state = bqm.set_params(st0, opts64, theta_tl=th_tl, theta_l=th_l)
         z64_start = (bq64.Z_mean(), bq64.Z_var())
-        gaps, errs, resolved = [], [], []
+        gaps, errs, resolved, score_errs = [], [], [], []
         for st32, xn, _ in steps:
-            g, e, n_ok = family_pick_gaps(bqm.tree_map(lambda a: a[None], st32), opts,
-                                          bqm.tree_map(lambda a: a[None], bq64.state), opts64,
-                                          xn[None, :], grid32, grid64)
+            g, e, n_ok, se = family_pick_gaps(one(st32), opts, one(bq64.state), opts64, xn[None, :], grid32, grid64)
             gaps.append(float(g[0]))
             errs.append(float(e[0]))
             resolved.append(int(n_ok[0]))
+            score_errs.append(float(se[0]))
             bq64.add_observation(xn if d > 1 else float(xn[0]), float(family_lik(kernel, xn if d > 1 else xn[0])))
         thetas = torch.as_tensor(bq64.sample_hypers(n=FAMILY_MARG_N[d], seed=7), device=dev)
         zm32s, zv32s = margm.marginalize(bq.state, opts, thetas.float())
         zm64s, zv64s = margm.marginalize(bq64.state, opts64, thetas)
     warned = sorted({str(w.message) for w in caught if issubclass(w.category, UserWarning)})
-    zv_start = family_zvar_check(steps[0][0], opts, zv0, z64_start[1])
-    zv_end = family_zvar_check(bq.state, opts, zv1, bq64.Z_var())
+    zv_start = family_zvar_check(zv0, z64_start[1])
+    zv_end = family_zvar_check(zv1, bq64.Z_var())
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
     marg_mean_rel = float(((zm32s.double() - zm64s).abs() / zm64s.abs()).max())
     marg_var_rel = rel(float(zv32s.double().mean()), float(zv64s.mean()))
     gap_ok = [math.isnan(g) or g <= max(ESM_ARGMAX_RTOL, 2.0 * e) for g, e in zip(gaps, errs)]
+    score_ok = [math.isnan(e) or e <= ESM_SCORE_RTOL for e in score_errs]
     res = dict(
         kernel=kernel, d=d, G=int(grid.shape[0]), max_obs=FAMILY_MAX_OBS, s=S_MAIN,
         routes=dict(fit="lbfgs (autograd; the fused fit is gaussian-only)", esm=acquire.esm_route(bq.state, opts),
@@ -1677,20 +1684,28 @@ def family_run(dev, kernel: str, d: int) -> dict:
         fit_s=fit_s, step_s=step_s, step_s_median=float(np.median(step_s)), marginalize_s=marg_s,
         launches=dict(fit=fit_launches, step=steps[0][2], marginalize=marg_launches, total=launches),
         Z_mean_rel=max(rel(zm0, z64_start[0]), rel(zm1, bq64.Z_mean())), Z_var_start=zv_start, Z_var_end=zv_end,
-        Z_var_start_value=zv0, Z_var_end_value=zv1, pick_gaps=gaps, esm_f32_errs=errs, f32_resolved_points=resolved,
+        init_pick=dict(x=x_init.tolist(), gap=init_pick[0], esm_f32_err=init_pick[1],
+                       f32_resolved_points=int(init_pick[2]), score_err=init_pick[3]),
+        pick_gaps=gaps, esm_f32_errs=errs, f32_resolved_points=resolved, score_errs=score_errs,
         marg_n=FAMILY_MARG_N[d], marg_Z_mean_max_rel=marg_mean_rel, marg_Z_var_mean_rel=marg_var_rel,
         marginalize_finite=bool(np.all(np.isfinite(zms)) and np.all(np.isfinite(zvs))),
         warnings=warned, tol=dict(Z_mean=ZMEAN_RTOL, Z_var=ZVAR_RTOL, marg_mean=MARG_MEAN_RTOL,
-                                  esm_argmax=ESM_ARGMAX_RTOL))
+                                  esm_argmax=ESM_ARGMAX_RTOL, esm_score=ESM_SCORE_RTOL))
     emit("families_path", **res)
     tag = f"{kernel} d={d}"
     check(fit_gain >= 0.0, f"{tag}: the fit did not lower the log-GP's MLL ({fit_gain})")
     check(res["Z_mean_rel"] <= ZMEAN_RTOL, f"{tag}: Z_mean f32 card vs f64 ({res['Z_mean_rel']})")
     check(zv_start["within"] and zv_end["within"], f"{tag}: Z_var f32 card vs f64 ({zv_start}, {zv_end})")
+    g0, e0, n0, se0 = init_pick
+    check(n0 > 0 and not math.isnan(g0) and g0 <= max(ESM_ARGMAX_RTOL, 2.0 * e0) and se0 <= ESM_SCORE_RTOL,
+          f"{tag}: at the init hypers the pick is the f64 optimum over the {n0:.0f} resolved points "
+          f"(gap {g0}, err {e0}) and the scores agree with f64 ({se0})")
     check(all(gap_ok), f"{tag}: each pick is the f64 optimum over the resolved points ({gaps}, {errs})")
-    # a fitted periodic kernel whose period the data span leaves no point of
-    # the grid unresolved in phase: the float32 guard demotes them all (the
-    # float64 one about half), and the picks are the plateau's (gap NaN)
+    check(all(score_ok), f"{tag}: f32 scores vs f64 where both guards resolve ({score_errs})")
+    # a fitted periodic kernel whose period the data span resolves no grid
+    # point in float32 (the float64 guard about half; ROADMAP §3 g): its
+    # picks are the plateau's (gap NaN), and the init pick above holds its
+    # scorer to float64
     check(kernel == "periodic" or resolved[0] > 0, f"{tag}: the f32 scorer resolves points after the fit")
     check(res["marginalize_finite"], f"{tag}: marginalize finite")
     check(marg_mean_rel <= MARG_MEAN_RTOL, f"{tag}: marginalized E[Z] f32 vs f64 on the same rows ({marg_mean_rel})")
@@ -1745,17 +1760,19 @@ def family_fleet(dev) -> dict:
                                      theta_l=fleet.states.gp_l.theta.double())
     zv_route = bqm._z_var_dispatch(opts)
     zm64_0, zv64_0 = fleet64.Z_mean(), fleet64.Z_var()
-    gaps, errs = [], []
+    gaps, errs, score_errs = [], [], []
     for st32, xn in steps:
-        g, e, _ = family_pick_gaps(st32, opts, fleet64.states, opts64, xn, grid32, grid64)
+        g, e, _, se = family_pick_gaps(st32, opts, fleet64.states, opts64, xn, grid32, grid64)
         gaps.append(g)
         errs.append(e)
+        score_errs.append(se)
         fleet64.add_observation(xn, fleet_lik(xn[:, 0], mus))
-    gaps, errs = torch.stack(gaps), torch.stack(errs)
+    gaps, errs, score_errs = torch.stack(gaps), torch.stack(errs), torch.stack(score_errs)
     gap_ok = torch.isnan(gaps) | (gaps <= torch.clamp(2.0 * errs, min=ESM_ARGMAX_RTOL))
+    score_ok = torch.isnan(score_errs) | (score_errs <= ESM_SCORE_RTOL)
     rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))  # noqa: E731
-    zv_start = family_zvar_check(steps[0][0], opts, zv0, zv64_0)
-    zv_end = family_zvar_check(fleet.states, opts, zv1, fleet64.Z_var())
+    zv_start = family_zvar_check(zv0, zv64_0)
+    zv_end = family_zvar_check(zv1, fleet64.Z_var())
     res = dict(kernel=FAMILY_FLEET_KERNEL, B=FLEET_B, G=G, max_obs=FLEET_MAX_OBS, steps=FAMILY_FLEET_STEPS,
                routes=dict(fit="lbfgs, all B·ntry rows in lock step", esm="plain batched",
                            z_var=zv_route.__name__),
@@ -1763,11 +1780,13 @@ def family_fleet(dev) -> dict:
                Z_mean_rel=max(rel(zm0, zm64_0), rel(zm1, fleet64.Z_mean())), Z_var_start=zv_start, Z_var_end=zv_end,
                pick_gap_max=float(torch.nan_to_num(gaps, nan=0.0).max()),
                esm_f32_err_max=float(torch.nan_to_num(errs, nan=0.0).max()),
+               score_err_max=float(torch.nan_to_num(score_errs, nan=0.0).max()),
                picks_on_the_plateau=int(torch.isnan(gaps).sum()))
     emit("families_fleet", **res)
     check(res["Z_mean_rel"] <= ZMEAN_RTOL, f"Matérn fleet Z_mean f32 card vs f64 ({res['Z_mean_rel']})")
     check(zv_start["within"] and zv_end["within"], f"Matérn fleet Z_var f32 card vs f64 ({zv_start}, {zv_end})")
     check(bool(gap_ok.all()), "each Matérn fleet pick is the f64 optimum over the resolved points")
+    check(bool(score_ok.all()), f"Matérn fleet f32 scores vs f64 where both guards resolve ({res['score_err_max']})")
     check(launches["chol_batch"] > 0, f"the Matérn fleet refits through chol_batch {launches}")
     check(bool(np.all(fleet.ns == FLEET_N_OBS + FAMILY_FLEET_STEPS)), "the Matérn fleet added its observations")
     return res

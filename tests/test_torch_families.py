@@ -270,6 +270,67 @@ def test_rq_mix_rule_follows_alpha_rows():
         np.testing.assert_allclose(w[i].numpy(), np.asarray(wj), rtol=1e-12, atol=1e-15)
 
 
+def _rq_corr(alpha, r2):
+    """The exact rq correlation (1 + r²/(2α))^{−α}."""
+    return np.exp(-alpha * np.log1p(r2 / (2.0 * alpha)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 2e-9), (torch.float32, 2e-7)])
+def test_rq_mix_rule_meets_the_exact_correlation(dtype, tol):
+    """The rule's mixture against the exact correlation over r/w ∈ [0, 12]
+    at the bound its docstring states, from α = 0.5 to the gaussian limit
+    that fits on smooth data reach (10⁵ on the card; the JAX package's rule
+    is wrong from α ~ 10³ on, so nothing but the exact correlation holds the
+    port there)."""
+    r2 = np.linspace(0.0, 12.0, 2001) ** 2
+    for a in (0.5, 1.0, 8.0, 128.0, 1e3, 1e4, 1e5, 1e6, 1e8, 1e12, 1e30):
+        s2, w = (t.double().numpy() for t in tig.rq_mix_rule(torch.tensor(a, dtype=dtype)))
+        mix = (w * np.exp(-0.5 * r2[:, None] / s2)).sum(-1)
+        assert np.abs(mix - _rq_corr(a, r2)).max() <= tol, a
+
+
+@pytest.mark.parametrize("alpha", [1e3, 1e4, 1e5])
+@pytest.mark.parametrize("d", [1, 2])
+def test_rq_int_K_at_large_alpha_meets_quadrature(d, alpha):
+    """int_K_rq_mixture where only the port's rule holds (α ≥ 10³), against
+    an independent quadrature of k_rq · N(x; μ, Σ) in float64: scipy's quad
+    in 1-D, a 160² Gauss–Hermite product over Σ's Cholesky factor in 2-D
+    (it changes by ≤ 1e-11 from 100²). The bound is the rule's 2e-9 absolute
+    correlation error times h². And rq_K against the JAX package's power form,
+    which float64 still evaluates there, to the α·ε that rounding its base
+    1 + r²/(2α) costs."""
+    from numpy.polynomial.hermite_e import hermegauss
+    from scipy import integrate
+
+    rng = np.random.RandomState(int(np.log10(alpha)) + 10 * d)
+    x = rng.uniform(-2.5, 2.5, (6, d))
+    h, w = 1.3, rng.uniform(0.3, 1.0, d)
+    mu, S = _measure(d, rng)
+    got = tig.int_K_rq_mixture(_t(x), _t(h), _t(w), _t(alpha), _t(mu), _t(S)).numpy()
+    if d == 1:
+        sd = np.sqrt(S[0, 0])
+
+        def f(u, xi):
+            return h * h * _rq_corr(alpha, ((u - xi) / w[0]) ** 2) * np.exp(-0.5 * ((u - mu[0]) / sd) ** 2)
+
+        want = np.array([integrate.quad(f, mu[0] - 14 * sd, mu[0] + 14 * sd, args=(xi,), points=[xi],
+                                        epsabs=1e-15, epsrel=1e-13, limit=500)[0] for xi in x[:, 0]])
+        want /= sd * np.sqrt(2 * np.pi)
+    else:
+        z, wz = hermegauss(160)
+        wz = wz / wz.sum()
+        z2 = np.stack(np.meshgrid(z, z, indexing="ij"), -1).reshape(-1, 2)
+        pts = mu + z2 @ np.linalg.cholesky(S).T
+        want = np.array([(np.outer(wz, wz).ravel() * h * h * _rq_corr(alpha, (((pts - xi) / w) ** 2).sum(-1))).sum()
+                         for xi in x])
+    assert np.abs(got - want).max() <= 2e-9 * h * h
+    th = np.concatenate([[h], w, [alpha]])
+    xs = rng.uniform(-3, 3, (7, d))
+    want_k = np.asarray(jker.rq_K(jnp.asarray(th), jnp.asarray(xs), jnp.asarray(xs)))
+    assert np.all(np.isfinite(want_k))
+    np.testing.assert_allclose(tker.rq_K(_t(th), _t(xs), _t(xs)).numpy(), want_k, rtol=alpha * 2.2e-16 + 1e-14)
+
+
 # ---------------------------------------------------------------------------
 # the estimator
 # ---------------------------------------------------------------------------

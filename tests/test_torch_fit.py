@@ -267,6 +267,35 @@ def test_fit_params_reaches_the_jax_optimum():
     np.testing.assert_array_equal(th_0.numpy(), theta0)
 
 
+@pytest.mark.parametrize("kernel,free", [("gaussian", None), ("matern52", None), ("rq", (True, False, True))])
+def test_fit_params_on_a_fleet_equals_one_fit_per_problem(kernel, free):
+    """``fit_params`` on fleet data ((P, n, d), inits (P, R, p)) advances all
+    P·R restart rows in one lock-step L-BFGS; each problem's result equals
+    its own call on the same inits at 1e-12 relative (float64), with a
+    different live count per problem and, for rq, a frozen coordinate, over
+    15 iterations."""
+    rng = np.random.RandomState(4)
+    P, R, n = 3, 3, 12
+    xs, ys, masks = zip(*(_sine_data(n=n - pad, pad=pad, seed=10 + i) for i, pad in enumerate((0, 2, 5))))
+    x, y, mask = _t(np.stack(xs)), _t(np.stack(ys)), torch.as_tensor(np.stack(masks))
+    p = 3 if kernel == "rq" else 2
+    theta0 = np.exp(rng.uniform(-0.5, 0.5, (P, p)))
+    s = np.array([0.05, 0.1, 0.02])
+    inits = np.log(theta0)[:, None, :] + rng.uniform(-1.0, 1.0, (P, R, p))
+    inits[:, 0] = np.log(theta0)
+    free_mask = None if free is None else torch.tensor(free)
+    th_b, mll_b = tfit.fit_params(kernel, theta0, s, x, y, mask, torch.Generator(), inits, n_iter=15,
+                                  free_mask=free_mask)
+    assert th_b.shape == (P, p) and mll_b.shape == (P,)
+    for i in range(P):
+        th_i, mll_i = tfit.fit_params(kernel, theta0[i], s[i], x[i], y[i], mask[i], torch.Generator(), inits[i],
+                                      n_iter=15, free_mask=free_mask)
+        np.testing.assert_allclose(th_b[i].numpy(), th_i.numpy(), rtol=1e-12)
+        np.testing.assert_allclose(float(mll_b[i]), float(mll_i), rtol=1e-12)
+        if free is not None:
+            assert th_b[i, 1].item() == theta0[i, 1]
+
+
 def test_fit_params_with_noise_reaches_the_jax_optimum():
     """Joint (θ, s) fit in float64 from the JAX package's own restart rows
     (its key split reproduced here): best MLL not below JAX's by more than

@@ -447,9 +447,11 @@ def test_mll_grad_per_problem_data_and_fleet_fused_fit():
 def test_fit_batch_routes():
     """float32 takes the fused route for the whole fleet (per-problem hypers
     after it, E[Z] within 5e-3 of each problem's closed form, a seed fixes the
-    result to the bit, frozen coordinates bit-identical); float64 loops the
-    problems over the batched L-BFGS and is held to the JAX package's
-    ``fit_batch`` at tests/test_torch_fit.py's rule: the port's MLL at its
+    result to the bit, frozen coordinates bit-identical); float64 advances
+    every problem's restart rows in one lock-step L-BFGS (each problem's
+    result its own call's, tests/test_torch_fit.py checks) and is held to
+    the JAX package's ``fit_batch`` at tests/test_torch_fit.py's rule: the
+    port's MLL at its
     fitted hypers is not below the JAX fit's by more than 1e-6 relative, each
     GP in turn on the data the JAX fit left."""
     xs = np.stack([np.linspace(-2.2, 2.2, 10)] * 3)

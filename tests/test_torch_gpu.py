@@ -1045,6 +1045,7 @@ def test_flattened_fleet_scorer(cuda, monkeypatch, B, S, G):
 
 
 # the other kernel families: plain torch Grams and integrals, the factorization kernels
+# (JAX-free copy of tests/torch_parity.FAMILY_PARAMS, the source of the CPU tests)
 FAMILY_PARAMS = {"matern52": (PARAMS_TL, PARAMS_L), "matern32": (PARAMS_TL, PARAMS_L),
                  "rq": (PARAMS_TL + (2.0,), PARAMS_L + (2.0,)), "periodic": ((0.7, 0.8, 1.0), (0.35, 0.8, 1.0))}
 

@@ -218,10 +218,10 @@ def _live_std(y, mask):
 
 def _uniform(gen: torch.Generator, shape, lo, hi, like: torch.Tensor):
     """U(lo, hi) draws of ``shape`` in ``like``'s dtype and device; ``lo`` and
-    ``hi`` are numbers or tensors that broadcast against ``shape``."""
+    ``hi`` are numbers or tensors that broadcast against ``shape``. The draw
+    is scaled in float64 and cast once."""
     r = torch.rand(shape, generator=gen, dtype=torch.float64, device=gen.device)
-    if torch.is_tensor(lo) or torch.is_tensor(hi):
-        return lo + (hi - lo) * r.to(dtype=like.dtype, device=like.device)
+    lo, hi = (torch.as_tensor(v, dtype=torch.float64, device=r.device) for v in (lo, hi))
     return (lo + (hi - lo) * r).to(dtype=like.dtype, device=like.device)
 
 

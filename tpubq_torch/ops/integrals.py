@@ -410,23 +410,40 @@ def int_K_matern_mixture(x, h, w, mu, Sigma, nu):
 RQ_MIX_NODES = 97
 
 
+def _expm1_minus_x_over_x2(v):
+    """(e^v − 1 − v) / v², accurate at every v: Taylor's series below |v| = ¼
+    (16 terms: 1e-18 at the edge), the direct form above it."""
+    small = v.abs() < 0.25
+    vs = torch.where(small, v, torch.zeros_like(v))
+    series = torch.zeros_like(v)
+    for k in range(15, -1, -1):
+        series = series * vs + 1.0 / math.factorial(k + 2)
+    vd = torch.where(small, torch.ones_like(v), v)
+    return torch.where(small, series, (torch.expm1(vd) - vd) / (vd * vd))
+
+
 def rq_mix_rule(alpha, dtype=None):
     """Gamma(α) scale-mixture rule of the rq kernel → (scale², ω), each (..., 97).
 
     (1 + u)^{−α} = ∫₀^∞ Gamma(t; α, 1) e^{−t u} dt: k_rq = Σ_q ω_q ·
     gaussian(width w·√(α/t_q)). α is a hyperparameter, so the rule follows
-    it: nodes t = α e^{ν/s}, s = √max(α, 1), ν on the grid [−35, 5] × 96; an
-    analytic left-tail node (the mass below the grid, t_lo = α e^{ν_lo/s},
+    it: nodes t = α e^{v}, v = ν/s, s = √max(α, 1), ν on the grid [−35, 5] × 96;
+    an analytic left-tail node (the mass below the grid, t_lo = α e^{v_lo},
     m₀ = t_lo^α e^{−t_lo}/Γ(α + 1), at its conditional mean t₀ = t_lo·α/(α+1));
-    and ω self-normalized to sum to 1. ≤ 2.0e-9 absolute for α ∈ [0.5, 128];
-    6e-6 at α = 0.25.
+    and ω self-normalized to sum to 1. Against the exact correlation over
+    r/w ∈ [0, 12] (tests/test_torch_families.py): ≤ 2.0e-9 absolute in float64
+    for α ∈ [0.5, 10³⁰], 5e-6 at α = 0.25; ≤ 2e-7 in float32 at every α ≥ 0.5.
 
-    The JAX package's tail mass lacks the e^{−t_lo} factor, which is 1 to
-    rounding while t_lo ≪ 1 (α ≲ 100) but not above: its rule puts 1.1% of
-    the mass on the tail node at α = 1225, all of it at α = 2000, and
-    overflows to NaN beyond, where an MLL fit on smooth data drives α (the
-    rq kernel's gaussian limit). With the factor the tail node is negligible
-    at every α.
+    The log weights are taken relative to the Gamma density's mode, where
+    every factor of α^α/Γ(α) cancels in the self-normalization:
+    log ω_q = −α(e^v − 1 − v) + log(dν/s) and log m₀ = −α(e^{v_lo} − 1 − v_lo)
+    − log α, with α(e^v − 1 − v) = min(α, 1)·ν²·(e^v − 1 − v)/v². The JAX
+    package forms α log α − lnΓ(α) + αv − t and lacks the tail's e^{−t_lo}:
+    the same rule in exact arithmetic while t_lo ≪ 1 (α ≲ 100), but its
+    cancellation costs float32 3e-6 at α = 10⁵ and NaN at 10⁹, and the
+    missing factor puts 1.1% of the mass on the tail node at α = 1225, all
+    of it at α = 2000, and NaN beyond: where an MLL fit on smooth data
+    drives α (the rq kernel's gaussian limit).
     """
     lo, hi, n = -35.0, 5.0, RQ_MIX_NODES - 1
     alpha = torch.as_tensor(alpha)
@@ -434,25 +451,20 @@ def rq_mix_rule(alpha, dtype=None):
     nu = torch.linspace(lo, hi, n, dtype=torch.float64).to(dtype=alpha.dtype, device=alpha.device)
     dnu = (hi - lo) / (n - 1)
     s = torch.sqrt(torch.clamp(alpha, min=1.0))
+    c = torch.clamp(alpha, max=1.0)  # α / s²
     v = nu / s
-    t = alpha * torch.exp(v)
-    lg = torch.lgamma(alpha)
-    logw = alpha * torch.log(alpha) + alpha * v - t - lg
-    w = torch.exp(logw) * (dnu / s)
+    w = torch.exp(-c * (nu * nu) * _expm1_minus_x_over_x2(v)) * (dnu / s)
     vlo = lo / s
-    t_lo = alpha * torch.exp(vlo)
-    m0 = torch.exp((alpha - 1.0) * torch.log(alpha) + alpha * vlo - t_lo - lg)
-    t0 = t_lo * alpha / (alpha + 1.0)
-    t = torch.cat([t, t0], dim=-1)
+    m0 = torch.exp(-c * (lo * lo) * _expm1_minus_x_over_x2(vlo)) / alpha
+    s2 = torch.cat([torch.exp(-v), torch.exp(-vlo) * (alpha + 1.0) / alpha], dim=-1)  # α / t_q
     w = torch.cat([w, m0], dim=-1)
-    w = w / w.sum(-1, keepdim=True)
-    return alpha / t, w
+    return s2, w / w.sum(-1, keepdim=True)
 
 
 def int_K_rq_mixture(x, h, w, alpha, mu, Sigma):
     """∫ k_rq(x', x_i) N(x' | mu, Sigma) dx' for the rq kernel, any d →
     (..., n): the gaussian closed form at each node of ``rq_mix_rule(alpha)``
-    (≤ 2e-9 absolute mixture error for α ∈ [0.5, 128])."""
+    (≤ 2e-9 absolute mixture error in float64 for α ≥ 0.5)."""
     _check_w(Sigma, w)
     h = _like(h, x)
     s2, wq = rq_mix_rule(_like(alpha, x))

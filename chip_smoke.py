@@ -71,6 +71,28 @@ before the final line):
               Each prints its routes, the launches of cholesky_blocked,
               tri_solve_blocked and chol_batch per call kind, the walls of
               the fit, a step and marginalize, and its resolution warnings.
+4d. facade — the serving surface on the card: the testbed's float32 BQ
+              (max_obs 32) after fit_hypers → choose_next over 10⁴ points
+              with refine=True, with no hyper rows and with n = 10 (the
+              refined point's float64 ESM, on the port's CPU path with the
+              same data, hypers and rows, at least the grid pick's less the
+              pick allowance; the refined float32 value at least the start)
+              → health() (flags and jitters equal to float64's, cond within
+              2×, the clamped share of V[Z] ≤ 1e-3, the report renders) →
+              save_state → load_state (moments, scores and pick
+              bit-identical; the file also through utils.convert) and
+              BQ.save → BQ.load (a refit, within §2's limits) → the next
+              choose_next; the large-N recipe's max_obs 1024 state saved and
+              reloaded with a refit (exact launches of gaussian_gram,
+              cholesky_blocked and tri_solve_blocked; E[Z], V[Z] within the
+              large-N limits); a BQFleet at B = 64: fit → choose_next →
+              health() ((64,) leaves, 4 rows equal to single BQs' health) →
+              save → load (bit-identical moments and picks, the seed) and
+              load(refit=True) (one chol_batch launch per GP); the GP
+              facade's float32 fit on the card (its exact launches, held to
+              float64); then host times of save, load, load(refit=True),
+              health and refine (utils.profiling.time_fn) and one
+              utils.profiling.trace.
 5. large N  — the large-max_obs path (benchmarks/large_n.py's recipe) at
               max_obs 128, 256, 512 and 1024: init_state → Z moments →
               run_active_loop (8 steps, incremental False, True, "auto") →
@@ -99,7 +121,7 @@ before the final line):
               INCREMENTAL_AUTO_WINDOW is read from.
 
 Then the kernel summary line (each kernel with its launches on the main,
-marginalize and family paths), the nvidia-smi line, and the final
+marginalize, family and facade paths), the nvidia-smi line, and the final
 {"ok": true, ...} line. Imports nothing from JAX or the JAX package.
 """
 
@@ -1802,6 +1824,257 @@ def families_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the serving surface — refinement, health, checkpoints, the GP
+# facade, profiling
+# ---------------------------------------------------------------------------
+
+FACADE_MARG_N = 10  # hyper rows of the marginalized refinement
+FACADE_SEED = 5
+# health() in float32 against the float64 path on the same data and hypers:
+# the flags equal, the rung-0 jitter (base_jitter × the mean live diagonal)
+# equal up to float32's rounding of that mean, cond(K) ≈ (max/min diag L)²
+# within a factor 2, and the clamped share of V[Z] at the rounding floor.
+HEALTH_FLAGS = ("l_s_finite", "alpha_l_finite", "alpha_tl_finite", "factor_ok_tl", "factor_ok_l",
+                "gp_log_l.finite", "gp_l.finite")
+HEALTH_JITTER_RTOL, HEALTH_COND_FACTOR, HEALTH_CLAMP_MAX = 1e-5, 2.0, 1e-3
+# The GP facade at the large-N recipe's first 244 points (s = 0.05) in
+# float32 on the card against float64 on the CPU: the posterior mean within
+# 1e-3 of its largest value, log_lh within 1e-3 relative.
+GP_FACADE_MAX_OBS, GP_FACADE_TOL = 256, 1e-3
+TIMING_KW = dict(iters=5, warmup=1, repeats=3)
+
+
+def _leaves(d: dict, prefix: str = ""):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def health_vs(d32: dict, d64: dict, what: str) -> dict:
+    """Hold one problem's float32 health to another's (float64, or a single
+    BQ against its fleet row): flags equal, jitters and cond(K) as above."""
+    a, b = dict(_leaves(d32)), dict(_leaves(d64))
+    flags = {k: (bool(a[k]), bool(b[k])) for k in HEALTH_FLAGS}
+    jit = {k: abs(float(a[k]) - float(b[k])) / abs(float(b[k])) for k in ("jitter_tl", "jitter_l")}
+    cond = {k: float(a[k]) / float(b[k]) for k in ("gp_log_l.cond_estimate", "gp_l.cond_estimate")}
+    out = dict(flags=flags, jitter_rel=jit, cond_ratio=cond, ns=(int(a["ns"]), int(b["ns"])),
+               nc=(int(a["nc"]), int(b["nc"])), z_var_clamped_rel=float(a["z_var_clamped_rel"]))
+    check(all(x == y for x, y in flags.values()), f"health flags equal ({what}: {flags})")
+    check(out["ns"][0] == out["ns"][1] and out["nc"][0] == out["nc"][1], f"ns and nc equal ({what})")
+    check(all(v <= HEALTH_JITTER_RTOL for v in jit.values()), f"jitters equal ({what}: {jit})")
+    check(all(1.0 / HEALTH_COND_FACTOR <= v <= HEALTH_COND_FACTOR for v in cond.values()),
+          f"cond_estimate within {HEALTH_COND_FACTOR}x ({what}: {cond})")
+    return out
+
+
+def facade_refine(bq, bq64, grid_dev, rows) -> dict:
+    """choose_next over the grid, then refine_next from its pick (under the
+    hyper rows ``rows`` or none), on the card; the refined point held to the
+    grid pick by the float64 ESM of the port's CPU path (the same data,
+    hypers and rows), up to PERF.md §2's pick allowance: max(1e-5, 2 × the
+    float32 scorer's relative error at either point)."""
+    import torch
+
+    from tpubq_torch.models import acquire, bq as bqm
+
+    st, opts = bq.state, bq.options
+    x0, _ = acquire.choose_next(st, opts, grid_dev, rows)
+    x_ref, v_ref = acquire.refine_next(st, opts, x0, rows)
+    _, v0 = acquire.refine_next(st, opts, x0, rows, n_steps=0)  # the plain float32 score at x0
+    st64 = bq64.state
+    if rows is not None:
+        st64 = bqm.apply_hyper_sample(st64, bq64.options, rows.double().cpu())
+    e64 = lambda x: acquire.expected_squared_mean_xla(  # noqa: E731
+        st64, bq64.options, x.double().cpu()[None, :]).reshape(-1).mean().item()
+    v0, v_ref = v0.item(), v_ref.item()
+    at0, atr = e64(x0), e64(x_ref)
+    err = max(abs(v0 - at0) / abs(at0), abs(v_ref - atr) / abs(atr))
+    allowance = max(ESM_ARGMAX_RTOL, 2.0 * err)
+    res = dict(n=0 if rows is None else int(rows.shape[0]), x_grid=x0.item(), x_refined=x_ref.item(),
+               esm_f32_grid=v0, esm_f32_refined=v_ref, esm_f64_grid=at0, esm_f64_refined=atr,
+               f32_rel_err=err, allowance=allowance)
+    check(v_ref >= v0, f"the refined float32 ESM is at least the start's ({res})")
+    check(atr >= at0 * (1.0 - allowance), f"the refined point's float64 ESM is at least the grid pick's ({res})")
+    return res
+
+
+def facade_path(dev) -> dict:
+    """Phase 4d: the single-device serving surface through ``BQ`` and
+    ``BQFleet`` on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpubq_torch import BQ, BQFleet
+    from tpubq_torch.models import acquire, bq as bqm, gp as gpm
+    from tpubq_torch.ops import hopper_kernels as hk
+    from tpubq_torch.utils import convert, health, io, profiling
+
+    tmp = tempfile.mkdtemp(prefix="tpubq_facade_")
+    t_start = time.perf_counter()
+    x = testbed_x(False)
+    grid = np.linspace(-4.0, 4.0, G)
+    grid_dev = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    zero_counts()
+    res = {}
+
+    # the single problem: fit, then the refined pick with and without hyper rows
+    bq = make_bq(x, dev, "float32", s=S_MAIN)
+    bq64 = make_bq(x, "cpu", "float64", s=S_MAIN)
+    bq.fit_hypers(ntry=FIT_RESTARTS, seed=FIT_SEED)
+    bq64._state = bqm.set_params(bq64.state, bq64.options, theta_tl=bq.state.gp_log_l.theta.double().cpu(),
+                                 theta_l=bq.state.gp_l.theta.double().cpu())
+    rows = torch.as_tensor(bq.sample_hypers(n=FACADE_MARG_N, seed=FACADE_SEED), dtype=torch.float32, device=dev)
+    res["refine"] = [facade_refine(bq, bq64, grid_dev, None), facade_refine(bq, bq64, grid_dev, rows)]
+    x_fac = bq.choose_next(grid, refine=True)
+    x_fac_n = bq.choose_next(grid, n=FACADE_MARG_N, seed=FACADE_SEED, refine=True)
+    res["facade_picks"] = dict(refine=x_fac, refine_n10=x_fac_n)
+    check(x_fac == res["refine"][0]["x_refined"], "BQ.choose_next(refine=True) returns refine_next's point")
+
+    # health, float32 on the card against the float64 path
+    d32 = bq.health()
+    check(all(v.device.type == dev.type for _, v in _leaves(d32)), "health() leaves stay on the card")
+    res["health"] = health_vs(d32, bq64.health(), "single, f32 vs f64")
+    check(res["health"]["z_var_clamped_rel"] <= HEALTH_CLAMP_MAX, "V[Z] clamped at the rounding floor only")
+    report = bq.health(as_report=True)
+    check(len(report.splitlines()) == 8 and report.startswith("ns="), "format_report renders")
+
+    # checkpoints of one problem
+    p_state, p_bq = os.path.join(tmp, "state.npz"), os.path.join(tmp, "bq.npz")
+    io.save_state(p_state, bq.state, bq.options)
+    st2, o2 = io.load_state(p_state, device=dev)
+    z = lambda s, o: (bqm.Z_mean(s, o).item(), bqm.Z_var(s, o).item())  # noqa: E731
+    pick = lambda s, o: acquire.choose_next(s, o, grid_dev)  # noqa: E731
+    (xa, sa), (xb, sb) = pick(bq.state, bq.options), pick(st2, o2)
+    res["checkpoint"] = dict(Z=z(bq.state, bq.options), Z_reloaded=z(st2, o2), pick=xa.item(),
+                             pick_reloaded=xb.item())
+    check(z(st2, o2) == z(bq.state, bq.options), "save_state → load_state: Z_mean, Z_var bit-identical")
+    check(torch.equal(xa, xb) and torch.equal(sa, sb), "save_state → load_state: scores and pick bit-identical")
+    check(convert.load_tpubq_npz(p_state, device=dev)[0].gp_l.alpha.equal(bq.state.gp_l.alpha)
+          and bqm.Z_mean(*convert.load_tpubq_npz(p_state, device=dev)).item() == z(st2, o2)[0],
+          "the card's checkpoint loads through utils.convert with the same Z_mean")
+    bq.save(p_bq)
+    b2 = BQ.load(p_bq, device=dev)
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    res["checkpoint"].update(bq_load_Z=(b2.Z_mean(), b2.Z_var()), bq_load_pick=b2.choose_next(grid, refine=True),
+                             bq_load_seed=b2._seed)
+    check(rel(b2.Z_mean(), bq.Z_mean()) <= ZMEAN_RTOL and rel(b2.Z_var(), bq.Z_var()) <= ZVAR_RTOL,
+          f"BQ.save → BQ.load (a refit) keeps E[Z], V[Z] ({res['checkpoint']})")
+    s_st, s_o = convert.load_tpubq_npz(p_bq, device=dev)
+    check(rel(bqm.Z_mean(s_st, s_o).item(), bq.Z_mean()) <= ZMEAN_RTOL, "BQ.save's file loads through utils.convert")
+
+    # max_obs 1024: a checkpoint of the large-N recipe's state, reloaded with a refit
+    st_l, o_l = large_state(dev, 1024, "float32")
+    p_large = os.path.join(tmp, "large.npz")
+    io.save_state(p_large, st_l, o_l)
+    c0 = kernel_counts()
+    st_r, _ = io.load_state(p_large, refit=True, device=dev)
+    torch.cuda.synchronize()
+    got, want = delta(c0, kernel_counts()), add_counts(o_l, "refit")
+    zl, zr = z(st_l, o_l), z(st_r, o_l)
+    res["large"] = dict(max_obs=1024, launches=got, expected=want, Z=zl, Z_refit=zr,
+                        Z_mean_rel=rel(zr[0], zl[0]), Z_var_rel=rel(zr[1], zl[1]))
+    check(got == want, f"load_state(refit=True) at max_obs 1024: exact launches ({got} vs {want})")
+    check(res["large"]["Z_mean_rel"] <= LARGE_ZMEAN_RTOL and res["large"]["Z_var_rel"] <= LARGE_ZVAR_RTOL,
+          f"the refit load keeps E[Z], V[Z] at max_obs 1024 ({res['large']})")
+
+    # the fleet at B = 64
+    xs, ls, _ = fleet_data(FLEET_B, FLEET_N_OBS)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2,
+              max_obs=FLEET_MAX_OBS, s=S_MAIN)
+    fleet = BQFleet(xs, ls, device=dev, dtype="float32", seed=7, **kw)
+    fleet.fit(ntry=FIT_RESTARTS, seed=FIT_SEED)
+    fx = fleet.choose_next(grid)
+    dh = fleet.health()
+    check(all(tuple(v.shape) == (FLEET_B,) for _, v in _leaves(dh)), "fleet health: every leaf is (64,)")
+    th_tl, th_l = fleet.states.gp_log_l.theta.cpu().numpy(), fleet.states.gp_l.theta.cpu().numpy()
+    row = lambda d, i: {k: row(v, i) if isinstance(v, dict) else v[i] for k, v in d.items()}  # noqa: E731
+    singles = {}
+    for i in FLEET_SINGLES:
+        one = BQ(xs[i], ls[i], device=dev, dtype="float32", **{k: v for k, v in kw.items() if "params" not in k})
+        one.init(params_tl=th_tl[i], params_l=th_l[i])
+        singles[i] = health_vs(one.health(), row(dh, i), f"fleet row {i} vs its single BQ")
+    res["fleet_health"] = dict(singles=singles, max_cond_l=dh["gp_l"]["cond_estimate"].max().item())
+    p_fleet = os.path.join(tmp, "fleet")
+    fleet.save(p_fleet)
+    f2 = BQFleet.load(p_fleet + ".npz", device=dev)
+    check(f2._seed == 7, "the fleet's seed survives the checkpoint")
+    check(np.array_equal(f2.Z_mean(), fleet.Z_mean()) and np.array_equal(f2.Z_var(), fleet.Z_var()),
+          "BQFleet.save → load: moments bit-identical")
+    check(np.array_equal(f2.choose_next(grid), fx), "BQFleet.save → load: picks bit-identical")
+    c0 = hk.chol_batch.launches
+    f3 = BQFleet.load(p_fleet + ".npz", refit=True, device=dev)
+    torch.cuda.synchronize()
+    n_cb = hk.chol_batch.launches - c0
+    zr_rel = float(np.max(np.abs(f3.Z_mean() - fleet.Z_mean()) / np.abs(fleet.Z_mean())))
+    res["fleet_checkpoint"] = dict(refit_chol_batch_launches=n_cb, refit_Z_mean_max_rel=zr_rel)
+    check(n_cb == 2, f"BQFleet.load(refit=True): one chol_batch launch per GP's rung stack, got {n_cb}")
+    check(zr_rel <= ZMEAN_RTOL, "BQFleet.load(refit=True) keeps E[Z]")
+
+    # the GP facade's fit on the card: the large-N recipe's first points
+    xg, lg = large_data(GP_FACADE_MAX_OBS)
+    yg = np.log(lg)
+    c0 = kernel_counts()
+    gp32 = gpm.GP("gaussian", PARAMS_TL, xg, yg, s=S_LARGE, device=dev, dtype="float32")
+    torch.cuda.synchronize()
+    n = len(xg)
+    got = delta(c0, kernel_counts())
+    want = dict(esm_fused=0, chol_batch=0, gaussian_gram=1, cholesky_blocked=hk.cholesky_blocked_launches(n),
+                tri_solve_blocked=3 * hk.tri_solve_blocked_launches(n), cholesky_batched=0)
+    gp64 = gpm.GP("gaussian", PARAMS_TL, xg, yg, s=S_LARGE, device="cpu")
+    xo = np.linspace(-2.0, 2.0, 9)
+    m32, m64 = gp32.mean(xo).double().cpu(), gp64.mean(xo)
+    res["gp_facade"] = dict(n=n, launches=got, expected=want,
+                            mean_rel=((m32 - m64).abs().max() / m64.abs().max()).item(),
+                            log_lh=gp32.log_lh, log_lh_f64=gp64.log_lh, log_lh_rel=rel(gp32.log_lh, gp64.log_lh))
+    check(got == want, f"the GP facade's fit runs on gaussian_gram, cholesky_blocked, tri_solve_blocked ({got})")
+    check(res["gp_facade"]["mean_rel"] <= GP_FACADE_TOL and res["gp_facade"]["log_lh_rel"] <= GP_FACADE_TOL,
+          f"the GP facade f32 card vs f64 CPU ({res['gp_facade']})")
+
+    torch.cuda.synchronize()
+    launches = {**kernel_counts(), "mll_grad_batched": hk.mll_grad_batched.launches,
+                "esm_fleet_l": hk.esm_fleet_l.launches, "esm_fleet_tl": hk.esm_fleet_tl.launches}
+    path_seconds = time.perf_counter() - t_start
+    on_path = ("esm_fused", "esm_fleet_l", "esm_fleet_tl", "gaussian_gram", "cholesky_blocked",
+               "tri_solve_blocked", "chol_batch", "mll_grad_batched")
+    check(all(launches[k] > 0 for k in on_path), f"every kernel of the facade path launched {launches}")
+
+    # host times of the serving calls (utils.profiling.time_fn: a median over
+    # three repeats, one synchronize each), then one trace
+    times = {}
+    tm = lambda name, fn: times.__setitem__(name, profiling.time_fn(fn, **TIMING_KW)[0] * 1e3)  # noqa: E731
+    tm("save_ms", lambda: io.save_state(p_state, bq.state, bq.options, force=True))
+    tm("load_ms", lambda: io.load_state(p_state, device=dev))
+    tm("load_refit_ms", lambda: io.load_state(p_state, refit=True, device=dev))
+    tm("bq_load_ms", lambda: BQ.load(p_bq, device=dev))
+    tm("health_ms", bq.health)
+    tm("refine_ms", lambda: acquire.refine_next(bq.state, bq.options, grid_dev[:1]))
+    tm("refine_n10_ms", lambda: acquire.refine_next(bq.state, bq.options, grid_dev[:1], rows))
+    tm("large_save_ms", lambda: io.save_state(p_large, st_l, o_l, force=True))
+    tm("large_load_refit_ms", lambda: io.load_state(p_large, refit=True, device=dev))
+    tm("fleet_save_ms", lambda: fleet.save(p_fleet, force=True))
+    tm("fleet_load_ms", lambda: BQFleet.load(p_fleet + ".npz", device=dev))
+    tm("fleet_load_refit_ms", lambda: BQFleet.load(p_fleet + ".npz", refit=True, device=dev))
+    tm("fleet_health_ms", fleet.health)
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("facade_choose_next_refine"):
+            bq.choose_next(grid, refine=True)
+    trace_file = os.path.join(trace_dir, "trace.json")
+    trace_bytes = os.path.getsize(trace_file) if os.path.exists(trace_file) else 0
+    check(trace_bytes > 0, "profiling.trace wrote its Chrome trace")
+    shutil.rmtree(tmp)
+    res.update(launches=launches, seconds=path_seconds, times=times, card=nvidia_smi(), trace_bytes=trace_bytes,
+               tol=dict(pick=ESM_ARGMAX_RTOL, jitter=HEALTH_JITTER_RTOL, cond_factor=HEALTH_COND_FACTOR,
+                        clamp=HEALTH_CLAMP_MAX, Z_mean=ZMEAN_RTOL, Z_var=ZVAR_RTOL, gp_facade=GP_FACADE_TOL))
+    emit("facade_path", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the large-max_obs path: gaussian_gram, cholesky_blocked, tri_solve_blocked,
 # cholesky_batched
 # ---------------------------------------------------------------------------
@@ -2850,6 +3123,7 @@ def main() -> int:
     fp = fleet_path(dev)
     mg = marginalize_path(dev)
     fam = families_path(dev)
+    fc = facade_path(dev)
     lp = large_n_path(dev)
     lf = large_fit(dev)
     esm_size_routes(dev)
@@ -2917,6 +3191,7 @@ def main() -> int:
     for k in kernels:  # launches on the marginalize path (phase 4b) and each family's path (4c)
         k["marg_launches"] = mg["launches"][k["name"]]
         k["families_launches"] = {run: n[k["name"]] for run, n in fam.items()}
+        k["facade_launches"] = fc["launches"][k["name"]]
     by_name = {k["name"]: k for k in kernels}
     by_name["chol_batch"].update(fleet_launches=fp["launches"]["chol_batch"],
                                  large_n_launches=lp["launches"]["chol_batch"],

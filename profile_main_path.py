@@ -16,6 +16,11 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
 * ``sampler``    — sample_hypers(n=20), the slice sampler alone;
 * ``sampler_chains_c1`` / ``sampler_chains_c4`` — sample_hypers(n=100) with
   one chain and with four chains in lock step;
+* ``refine`` / ``refine_n10`` — ``acquire.refine_next`` from the grid's pick
+  (30 Adam steps by autograd through the plain scorer), without and with
+  10 given θ_tl rows;
+* ``health`` — ``BQ.health()``; ``load_refit`` — ``utils.io.load_state`` of
+  the state's checkpoint with ``refit=True``;
 * ``fleet_fit``  — ``BQFleet.fit`` of 64 problems (64 × 10 restart rows per
   mll_grad launch), from the initial fleet state;
 * ``fleet_step`` — one ``BQFleet.choose_next`` over the grid plus one
@@ -179,7 +184,8 @@ def main() -> int:
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as out:
         out.write(f"{label}\n")
-        if want("fit_hypers", "step", "marginalize", "sampler", "sampler_chains_c1", "sampler_chains_c4"):
+        if want("fit_hypers", "step", "marginalize", "sampler", "sampler_chains_c1", "sampler_chains_c4",
+                "refine", "refine_n10", "health", "load_refit"):
             profile_single(dev, grid, args.iters, out, want, args.profiles)
         if want("fleet_fit", "fleet_step", "fleet_sampler", "fleet_marginalize", "fleet_choose_marg"):
             profile_fleet(dev, grid, args.iters, out, want, args.profiles)
@@ -291,6 +297,25 @@ def profile_single(dev, grid, iters: int, out, want, profiles: int = 1) -> None:
         bq.add_observation(xn, float(cs.f_l(xn)))
 
     th = torch.as_tensor(thetas, dtype=torch.float32, device=dev)
+    if want("refine", "refine_n10", "health", "load_refit"):
+        import tempfile
+
+        from tpubq_torch.models import acquire
+        from tpubq_torch.utils import io
+
+        x0, _ = acquire.choose_next(st, bq.options, torch.as_tensor(grid, dtype=torch.float32, device=dev))
+        if want("refine"):
+            profile_piece("refine", lambda: acquire.refine_next(st, bq.options, x0), iters, out, profiles)
+        if want("refine_n10"):
+            profile_piece("refine_n10", lambda: acquire.refine_next(st, bq.options, x0, th[:10]), iters, out,
+                          profiles)
+        if want("health"):
+            profile_piece("health", bq.health, iters, out, profiles)
+        if want("load_refit"):
+            with tempfile.TemporaryDirectory() as tmp:
+                io.save_state(os.path.join(tmp, "s"), st, bq.options)
+                profile_piece("load_refit", lambda: io.load_state(os.path.join(tmp, "s"), refit=True, device=dev),
+                              iters, out, profiles)
     if want("fit_hypers"):
         profile_piece("fit_hypers", fit, 3, out, profiles)
     if want("step"):

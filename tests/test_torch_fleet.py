@@ -498,10 +498,11 @@ def test_fit_batch_routes():
 # ---------------------------------------------------------------------------
 
 
-def test_bqfleet_surface_and_guard_rails():
+def test_bqfleet_surface_and_guard_rails(tmp_path):
     """The facade against the JAX ``BQFleet`` and the single ``BQ`` (float64:
     E[Z] 1e-9), the capacity and duplicate errors, ``from_states`` on an
-    unbatched state, the methods not ported yet, and the default device."""
+    unbatched state, health and a checkpoint round trip, and the default
+    device."""
     xs = np.stack([tu.make_x(), tu.make_x() + 0.1, tu.make_x() - 0.2])
     ls = np.stack([tu.f_l(x) for x in xs])
     kw = dict(n_candidate=12, candidate_thresh=0.2, x_mean=0.0, x_var=1.0, max_obs=12, **PARAMS)
@@ -547,9 +548,15 @@ def test_bqfleet_surface_and_guard_rails():
     assert [o.shape for o in fleet.marginalize(n=5, seed=1)] == [(3, 5), (3, 5)]
     assert fleet.choose_next(grid, n=3, seed=2).shape == (3, 1)
     assert [z.shape for z in fleet.run_active_loop(_lik_t, grid, 0, n=3)] == [(0, 3), (0, 3)]
-    for call in (fleet.health, lambda: fleet.save("fleet.npz"), lambda: tpubq_torch.BQFleet.load("fleet.npz")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # health, save and load (tests/test_torch_facade.py holds them to JAX)
+    assert fleet.health()["ns"].tolist() == [12, 12, 12]
+    path = str(tmp_path / "fleet")
+    again.save(path)
+    with pytest.raises(IOError, match="exists"):
+        again.save(path)
+    loaded = tpubq_torch.BQFleet.load(path, device="cpu")
+    assert loaded._seed == 7
+    np.testing.assert_array_equal(loaded.Z_mean(), fleet.Z_mean())
     with pytest.raises(ValueError, match="unknown options"):
         tpubq_torch.BQFleet(xs, ls, device="cpu", n_candidates=3)
     if not torch.cuda.is_available():  # the card is the default; the CPU must be asked for

@@ -1100,3 +1100,88 @@ def test_family_float32_on_the_card_matches_the_float64_plain_path(cuda, kernel,
     np.testing.assert_allclose(zv_m.double().mean().item(), zv_64.mean().item(), rtol=5e-2)
     torch.cuda.synchronize()
     assert all(getattr(hk, k).launches > n for k, n in counts.items()), counts
+
+
+# -- the serving surface on the card: refinement, checkpoints, health ---------
+
+
+def _testbed_pair(cuda):
+    """The testbed as a float32 BQ on the card and a float64 BQ on the CPU."""
+    import tpubq_torch
+
+    x = np.linspace(-2.2, 2.2, 10)
+    l = np.exp(-0.5 * ((x - 0.2) / 0.5) ** 2) / (0.5 * np.sqrt(2.0 * np.pi))
+    kw = dict(max_obs=32, n_candidate=12, candidate_thresh=0.2, x_mean=0.0, x_var=1.0, s=0.01)
+    b32 = tpubq_torch.BQ(x, l, device=cuda, dtype="float32", **kw).init(params_tl=PARAMS_TL, params_l=PARAMS_L)
+    b64 = tpubq_torch.BQ(x, l, device="cpu", dtype="float64", **kw).init(params_tl=PARAMS_TL, params_l=PARAMS_L)
+    return b32, b64
+
+
+@pytest.mark.parametrize("rows", [0, 3])
+def test_refine_next_on_card_against_the_f64_path(cuda, rows):
+    """The refined point's float64 ESM (the port's CPU path, the same data,
+    hypers and rows) is at least the grid pick's, less max(1e-5, 2 × the
+    float32 scorer's relative error there); the float32 value never drops."""
+    from tpubq_torch.models import bq as bqm
+
+    b32, b64 = _testbed_pair(cuda)
+    hyp = torch.tensor([[0.6, 0.7], [0.8, 0.9], [0.7, 1.1]][:rows], device=cuda) if rows else None
+    grid = torch.linspace(-4.0, 4.0, 2001, device=cuda)
+    x0, _ = acquire.choose_next(b32.state, b32.options, grid, hyp)
+    x_ref, v_ref = acquire.refine_next(b32.state, b32.options, x0, hyp)
+    _, v0 = acquire.refine_next(b32.state, b32.options, x0, hyp, n_steps=0)
+    assert v_ref.item() >= v0.item()
+    st64 = b64.state if hyp is None else bqm.apply_hyper_sample(b64.state, b64.options, hyp.double().cpu())
+
+    def e64(x):
+        return acquire.expected_squared_mean_xla(st64, b64.options, x.double().cpu()[None, :]).mean().item()
+
+    err = max(abs(v0.item() - e64(x0)) / e64(x0), abs(v_ref.item() - e64(x_ref)) / e64(x_ref))
+    assert e64(x_ref) >= e64(x0) * (1.0 - max(1e-5, 2.0 * err))
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """save_state → load_state on the card: moments, scores and pick
+    bit-identical; BQ.save → BQ.load (a refit) within 1e-4 / 5e-2."""
+    import tpubq_torch
+    from tpubq_torch.models import bq as bqm
+    from tpubq_torch.utils import io
+
+    b32, _ = _testbed_pair(cuda)
+    io.save_state(tmp_path / "s", b32.state, b32.options)
+    st, opts = io.load_state(tmp_path / "s", device=cuda)
+    assert st.x_s.is_cuda and st.gp_l.Kinv is not None
+    for fn in (bqm.Z_mean, bqm.Z_var):
+        assert fn(st, opts).item() == fn(b32.state, b32.options).item()
+    grid = torch.linspace(-4.0, 4.0, 2001, device=cuda)
+    (xa, sa), (xb, sb) = (acquire.choose_next(s, opts, grid) for s in (b32.state, st))
+    assert torch.equal(xa, xb) and torch.equal(sa, sb)
+    b32.save(tmp_path / "bq.npz")
+    back = tpubq_torch.BQ.load(tmp_path / "bq.npz", device=cuda)
+    assert back.device.type == "cuda"
+    assert abs(back.Z_mean() - b32.Z_mean()) <= 1e-4 * abs(b32.Z_mean())
+    assert abs(back.Z_var() - b32.Z_var()) <= 5e-2 * abs(b32.Z_var())
+
+
+def test_health_float32_single_and_fleet_on_card(cuda):
+    """health() in float32 on the card: the flags of the float64 path, the
+    leaves on the card; a fleet's leaves each (B,)."""
+    import tpubq_torch
+
+    b32, b64 = _testbed_pair(cuda)
+    d32, d64 = b32.health(), b64.health()
+    for k in ("l_s_finite", "alpha_l_finite", "alpha_tl_finite", "factor_ok_tl", "factor_ok_l"):
+        assert d32[k].is_cuda and bool(d32[k]) == bool(d64[k]), k
+    for g in ("gp_log_l", "gp_l"):
+        ratio = d32[g]["cond_estimate"].item() / d64[g]["cond_estimate"].item()
+        assert 0.5 <= ratio <= 2.0 and bool(d32[g]["finite"])
+    assert d32["z_var_clamped_rel"].item() <= 1e-3
+    assert b32.health(as_report=True).startswith("ns=10")
+    rng = np.random.RandomState(0)
+    xs = np.stack([np.linspace(-2.2, 2.2, 8) + 0.03 * rng.standard_normal(8) for _ in range(6)])
+    ls = np.exp(-0.5 * (xs - 0.1) ** 2 / 0.25)
+    fleet = tpubq_torch.BQFleet(xs, ls, params_tl=PARAMS_TL, params_l=PARAMS_L, device=cuda, dtype="float32",
+                                n_candidate=12, candidate_thresh=0.2, max_obs=16, s=0.01)
+    dh = fleet.health()
+    assert dh["ns"].shape == (6,) and dh["gp_l"]["cond_estimate"].shape == (6,)
+    assert bool(dh["factor_ok_l"].all()) and bool(dh["alpha_l_finite"].all())

@@ -1,13 +1,17 @@
 """tpubq_torch — the PyTorch / CUDA port of tpubq's Bayesian Quadrature.
 
-The serving, fitting, fleet and large-max_obs slices of the JAX package
-(``tpubq``), ported to PyTorch: the Osborne-style BQ estimator with a GP on
-the log-likelihood and an exp-linearized GP on the likelihood, multi-restart
-hyperparameter fitting, ``Z_mean``/``Z_var``, expected-squared-mean scoring,
-``choose_next``/``add_observation`` and the active loop (full refit or
-incremental updates), hyperparameter marginalization, and the fleet
-(``BQFleet``: B independent problems advanced together), for the five kernel
-families: gaussian, periodic, Matérn-5/2, Matérn-3/2 and rational quadratic.
+The single-device surface of the JAX package (``tpubq``), ported to
+PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and
+an exp-linearized GP on the likelihood, multi-restart hyperparameter
+fitting, ``Z_mean``/``Z_var``, expected-squared-mean scoring,
+``choose_next`` (with off-grid refinement) / ``add_observation`` and the
+active loop (full refit or incremental updates), hyperparameter
+marginalization, and the fleet (``BQFleet``: B independent problems advanced
+together), for the five kernel families: gaussian, periodic, Matérn-5/2,
+Matérn-3/2 and rational quadratic; with health diagnostics and checkpoints
+of one problem or a fleet (``utils.health``, ``utils.io``: the JAX package's
+file layout, so a checkpoint of either package loads in both), the ``GP``
+facade, plotting and profiling. ``parallel/`` (multi-device) is not ported.
 Nine kernels are written by hand for Hopper (sm_90a) in ``csrc/``,
 one for each Pallas kernel of the JAX package: the fused ESM scorer, the two
 batched Choleskys, the fused MLL-and-gradient of the fit, the two halves of
@@ -16,7 +20,8 @@ solve of one large matrix. The scorers, the fused fit and the Gram kernel are
 gaussian-only, as in the JAX package; the other families' Grams, integrals
 and scores are plain torch and run on the same factorization kernels.
 
-The entry points (``BQ``, ``BQFleet``, ``utils.convert``) run on the CUDA card unless the
+The entry points (``BQ``, ``BQFleet``, ``GP``, ``utils.io``, ``utils.convert``) run on
+the CUDA card unless the
 caller passes ``device="cpu"``, and raise where no card is there; the
 functions beneath them work on the device of the tensors they are given.
 float64 is the parity dtype; float32 is the device dtype. Matrix products must

@@ -46,8 +46,10 @@ __all__ = [
     "esm_route",
     "expected_squared_mean",
     "expected_squared_mean_xla",
+    "approx_expected_squared_mean",
     "expected_Z_var",
     "choose_next",
+    "refine_next",
     "demote_near_observed",
     "add_observation",
     "run_active_loop",
@@ -163,6 +165,26 @@ def expected_squared_mean_xla(state: BQState, opts: BQOptions, x_a) -> torch.Ten
     return torch.where(degenerate, (zTalpha * zTalpha)[..., None], esm)
 
 
+def approx_expected_squared_mean(state: BQState, opts: BQOptions, x_a) -> torch.Tensor:
+    """Gauss–Hermite twin of the ESM: (A + B ℓ_a)² integrated numerically over
+    tl_a ~ N(m_a, c_a) with ``n_gh`` nodes (scipy's rule: numpy's hermegauss
+    weights overflow above ~384 nodes), a check of the lognormal-moment
+    closed form."""
+    import numpy as np
+    from scipy.special import roots_hermitenorm
+
+    dtype, dev = state.x_s.dtype, state.x_s.device
+    x_a = as_points(x_a, opts.dim, dtype, dev)
+    gh_x, gh_w = roots_hermitenorm(opts.n_gh)
+    gh_x = torch.as_tensor(gh_x, dtype=dtype, device=dev)
+    gh_w = torch.as_tensor(gh_w / np.sqrt(2.0 * np.pi), dtype=dtype, device=dev)
+    A, B, degenerate, zTalpha, m_a, c_a = _esm_affine_terms(state, opts, x_a)
+    t = m_a[..., None] + torch.sqrt(c_a)[..., None] * gh_x
+    l_nodes = state.gamma[..., None, None] * torch.expm1(t)
+    esm = ((A[..., None] + B[..., None] * l_nodes) ** 2) @ gh_w
+    return torch.where(degenerate, (zTalpha * zTalpha)[..., None], esm)
+
+
 def esm_fused_inputs(state: BQState, opts: BQOptions, x_a):
     """Pack one float32 gaussian problem for ``hopper_kernels.esm_fused``,
     with the production guard noise_mult = λ·ρ·κ → the kernel's argument tuple."""
@@ -235,6 +257,64 @@ def choose_next(state: BQState, opts: BQOptions, x_a, hyper_samples=None):
         scores = scores / len(hyper_samples)
     sel = demote_near_observed(scores, x_a, state.x_s, state.obs_mask, opts.candidate_thresh)
     return x_a[torch.argmax(sel)], scores
+
+
+#: Adam's constants in ``refine_next`` (optax.adam's defaults).
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def refine_next(state: BQState, opts: BQOptions, x0, hyper_samples=None, n_steps: int = 30,
+                lr: float = 0.1):
+    """Gradient-ascent refinement of a grid pick off the grid → (x_ref, esm_ref).
+
+    ``n_steps`` Adam steps (optax's arithmetic: b1 0.9, b2 0.999, eps 1e-8,
+    step ``lr``·w_scale) on −∇ₓESM from ``x0`` (d,), the gradient by autograd
+    through the plain scorer (``expected_squared_mean_xla``: the fused
+    kernel has no backward, as in the JAX package). w_scale is the linear
+    GP's period for the periodic kernel (its w is unitless) and its smallest
+    length-scale otherwise, so ``lr`` is unitless. ``hyper_samples`` (S, p)
+    rows (θ_tl or joint): the objective is the ESM averaged over the rows,
+    all S re-anchored once as one batched state (``apply_hyper_sample``
+    with a row axis). Non-finite gradients count as zero; the best iterate
+    is returned, never worse than ``x0``. The loop reads nothing back to
+    the host.
+    """
+    dtype, dev = state.x_s.dtype, state.x_s.device
+    x0 = torch.as_tensor(x0, dtype=dtype, device=dev).reshape(opts.dim)
+    th_l = state.gp_l.theta
+    w_scale = th_l[2] if opts.kernel == "periodic" else th_l[1:1 + opts.dim].min()
+    if hyper_samples is not None:
+        state = apply_hyper_sample(state, opts, hyper_samples)
+
+    def score(x):
+        return expected_squared_mean_xla(state, opts, x[None, :]).reshape(-1).mean()
+
+    def value_and_grad(x):
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            v = score(x)
+            (g,) = torch.autograd.grad(v, x)
+        return v.detach(), g
+
+    step = lr * w_scale
+    x, best_x = x0, x0
+    best_v = score(x0)
+    mu = torch.zeros_like(x0)
+    nu = torch.zeros_like(x0)
+    for t in range(1, n_steps + 1):
+        v, g = value_and_grad(x)
+        better = v > best_v
+        best_x = torch.where(better, x, best_x)
+        best_v = torch.where(better, v, best_v)
+        g = -torch.where(torch.isfinite(g), g, torch.zeros_like(g))  # ascend
+        mu = (1.0 - _ADAM_B1) * g + _ADAM_B1 * mu
+        nu = (1.0 - _ADAM_B2) * g * g + _ADAM_B2 * nu
+        mu_hat = mu / (1.0 - _ADAM_B1**t)
+        nu_hat = nu / (1.0 - _ADAM_B2**t)
+        x = x - step * (mu_hat / (torch.sqrt(nu_hat) + _ADAM_EPS))
+    v_last = score(x)
+    better = v_last > best_v
+    return torch.where(better, x, best_x), torch.where(better, v_last, best_v)
 
 
 def add_observation(state: BQState, opts: BQOptions, x_a, l_a) -> BQState:

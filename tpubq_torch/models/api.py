@@ -60,6 +60,9 @@ class BQ:
         self._l0 = l
         self._state: Optional[bqm.BQState] = None
         self._ok_state = None
+        # the instance RNG's seed, kept for save(): pass seed= for independent
+        # streams across the members of an ensemble
+        self._seed = seed
         self._rng = np.random.RandomState(seed)
 
     # ------------------------------------------------------------------ state
@@ -180,6 +183,55 @@ class BQ:
     @property
     def l_s(self) -> np.ndarray:
         return _np(self.state.l_s)[: self.ns]
+
+    @property
+    def tl_s(self) -> np.ndarray:
+        return _np(self.state.tl_s)[: self.ns]
+
+    @property
+    def x_c(self) -> np.ndarray:
+        st = self.state
+        return _np(st.x_c)[_np(st.c_mask)]
+
+    @property
+    def l_c(self) -> np.ndarray:
+        st = self.state
+        return _np(st.l_c)[_np(st.c_mask)]
+
+    @property
+    def nc(self) -> int:
+        return int(self.state.c_mask.sum())
+
+    @property
+    def x_sc(self) -> np.ndarray:
+        st = self.state
+        return _np(st.x_sc)[_np(st.sc_mask)]
+
+    @property
+    def l_sc(self) -> np.ndarray:
+        st = self.state
+        return _np(st.l_sc)[_np(st.sc_mask)]
+
+    @property
+    def gamma(self) -> float:
+        """The exp-transform constant γ."""
+        return float(self.state.gamma) if self._state is not None else self._gamma0
+
+    @property
+    def x_mean(self) -> np.ndarray:
+        return _np(self.state.x_mean)
+
+    @property
+    def x_var(self) -> np.ndarray:
+        return _np(self.state.x_var)
+
+    @property
+    def gp_log_l(self):
+        return self.state.gp_log_l
+
+    @property
+    def gp_l(self):
+        return self.state.gp_l
 
     # ------------------------------------------------------------- estimation
     def _check_factorized(self):
@@ -317,16 +369,28 @@ class BQ:
         return np.stack(outs, axis=1) if stacked else outs
 
     # --------------------------------------------------------- active sampling
-    def choose_next(self, x_a, n: int = 0, params=None, seed=None, prior_std: float = None):
+    def choose_next(self, x_a, n: int = 0, params=None, seed=None, plot: bool = False,
+                    refine: bool = False, prior_std: float = None):
         """Best next sample location on the grid ``x_a``, with the ESM averaged
         over ``n`` hyper samples of the named ``params`` (θ_tl, or jointly
-        with ``*_l`` names) when ``n`` > 0."""
+        with ``*_l`` names) when ``n`` > 0.
+
+        ``refine=True`` moves the grid's winner off the grid by a few Adam
+        steps on ∇ₓESM under the same hyper samples (``acquire.refine_next``);
+        ``plot=True`` draws the grid's scores (``plotting``)."""
         self._check_factorized()
         hyper = None
         if n and n > 0:
             hyper = self._sample(params, n, 10, seed, prior_std)
             self._warn_resolution(sampled=_np(hyper), context="choose_next")
-        x_best, _ = acquire.choose_next(self.state, self.options, x_a, hyper)
+        x_best, scores = acquire.choose_next(self.state, self.options, x_a, hyper)
+        if refine:
+            x_best, _ = acquire.refine_next(self.state, self.options, x_best, hyper)
+        if plot:
+            from tpubq_torch.utils import plotting
+
+            grid = _np(x_a) if torch.is_tensor(x_a) else np.asarray(x_a)
+            plotting.plot_expected_squared_mean(self, grid, _np(scores))
         x_best = _np(x_best)
         return x_best if self.options.dim > 1 else float(x_best[0])
 
@@ -359,6 +423,160 @@ class BQ:
             s_tl=float(st.gp_log_l.s), s_l=float(st.gp_l.s), gamma=float(st.gamma),
             x_mean=_np(st.x_mean), x_var=_np(st.x_var), device=self.device,
         )
+
+    # ------------------------------------------------------------ persistence
+    def health(self, as_report: bool = False):
+        """Diagnostics of the current state (``utils.health.check_state``: a
+        dict of tensors on the state's device), or with ``as_report=True``
+        the formatted log lines."""
+        from tpubq_torch.utils import health as _health
+
+        diag = _health.check_state(self.state, self.options)
+        return _health.format_report(diag) if as_report else diag
+
+    def save(self, filename, force: bool = False):
+        """Write the observations, hyperparameters, measure, γ, the RNG seed
+        and the options to one ``.npz`` (the JAX package's ``BQ.save``
+        layout); ``load`` refits the factors."""
+        import os
+
+        if os.path.exists(str(filename)) and not force:
+            raise IOError(f"{filename} already exists (use force=True)")
+        st = self.state
+        np.savez(
+            filename,
+            x_s=self.x_s,
+            l_s=self.l_s,
+            theta_tl=_np(st.gp_log_l.theta),
+            theta_l=_np(st.gp_l.theta),
+            s_tl=float(st.gp_log_l.s),
+            s_l=float(st.gp_l.s),
+            gamma=float(st.gamma),
+            x_mean=_np(st.x_mean),
+            x_var=_np(st.x_var),
+            seed=self._seed,
+            **{f"opt_{k}": getattr(self.options, k) for k in _OPTION_KEYS},
+        )
+
+    @classmethod
+    def load(cls, filename, device="cuda"):
+        """Rebuild a ``BQ`` from a ``save`` file onto ``device`` (the card
+        unless the caller names another), refitting both GPs. A file without
+        ``theta_tl`` is read as the reference's layout
+        (``_load_reference_style``)."""
+        from tpubq_torch.utils.convert import options_from_dict
+
+        with np.load(str(filename), allow_pickle=False) as d:
+            # a reference-style file may hold a pickled options dict: not read here
+            flat = {k: d[k] for k in d.files} if "theta_tl" in d.files else None
+        if flat is None:
+            return cls._load_reference_style(filename, device)
+        opts = options_from_dict(flat, "opt_")
+        obj = cls(
+            flat["x_s"], flat["l_s"], device=device, x_mean=flat["x_mean"], x_var=flat["x_var"],
+            gamma=float(flat["gamma"]), s=float(flat["s_tl"]), s_l=float(flat["s_l"]),
+            seed=int(flat["seed"][()]) if "seed" in flat else 0,
+            # an option added after the file was saved keeps the constructor's default
+            **{k: getattr(opts, k) for k in _OPTION_KEYS if f"opt_{k}" in flat},
+        )
+        return obj.init(params_tl=flat["theta_tl"], params_l=flat["theta_l"])
+
+    @classmethod
+    def _load_reference_style(cls, filename, device="cuda"):
+        """Read a file of the reference's layout: observations under
+        ``x``/``x_s``/``x_so`` and ``l``/``l_s``/``l_so``, hypers under
+        ``params_tl``/``theta_tl`` (and ``_l``), the measure under
+        ``x_mean``/``mean`` and ``x_var``/``cov``/``var``, options possibly
+        as a pickled dict under ``options`` (unpickled for that key only,
+        unknown keys dropped with a warning). Without hypers the defaults are
+        installed, with a warning to fit."""
+        import warnings
+
+        def pick(d, *names):
+            for n in names:
+                if n in d.files:
+                    return d[n]
+            return None
+
+        with np.load(str(filename), allow_pickle=True) as d:
+            x = pick(d, "x_s", "x", "x_so")
+            l = pick(d, "l_s", "l", "l_so")
+            if x is None or l is None:
+                raise ValueError(
+                    f"{filename} has neither tpubq-native nor reference-style "
+                    f"BQ fields (found: {sorted(d.files)})"
+                )
+            kwargs = {}
+            raw_opts = pick(d, "options", "opts")
+            if raw_opts is not None and raw_opts.dtype == object:
+                raw_opts = raw_opts[()]
+                if isinstance(raw_opts, dict):
+                    known = set(_OPTION_KEYS) | {"x_mean", "x_var", "gamma", "s", "s_l"}
+                    dropped = sorted(set(raw_opts) - known)
+                    if dropped:
+                        warnings.warn(f"ignoring unknown option keys in {filename}: {dropped}")
+                    kwargs.update({k: v for k, v in raw_opts.items() if k in known})
+            for key, names in (("x_mean", ("x_mean", "mean")), ("x_var", ("x_var", "cov", "var")),
+                               ("gamma", ("gamma",)), ("s", ("s_tl", "s")), ("s_l", ("s_l",))):
+                v = pick(d, *names)
+                if v is not None:
+                    kwargs[key] = float(v) if np.ndim(v) == 0 else v
+            kwargs.setdefault("x_mean", 0.0)
+            kwargs.setdefault("x_var", 1.0)
+            # scalars saved through np.savez arrive as 0-d arrays
+            kwargs = {k: (v.item() if isinstance(v, np.ndarray) and v.ndim == 0 else v)
+                      for k, v in kwargs.items()}
+            if isinstance(kwargs.get("kernel"), (np.str_, np.bytes_)):
+                kwargs["kernel"] = str(kwargs["kernel"])
+            obj = cls(x, l, device=device, **kwargs)
+            p_tl = pick(d, "theta_tl", "params_tl")
+            p_l = pick(d, "theta_l", "params_l")
+            if p_tl is None and p_l is None:
+                warnings.warn(
+                    f"{filename} carries no hyperparameters; initialized with "
+                    f"defaults — call fit() before trusting estimates"
+                )
+            obj.init(params_tl=p_tl, params_l=p_l)
+        return obj
+
+    # --------------------------------------------------------------- plotting
+    def plot_gp_log_l(self, ax=None, f_l=None, xmin=None, xmax=None):
+        from tpubq_torch.utils import plotting
+
+        return plotting.plot_gp_log_l(self, ax=ax, f_l=f_l, xmin=xmin, xmax=xmax)
+
+    def plot_gp_l(self, ax=None, f_l=None, xmin=None, xmax=None):
+        from tpubq_torch.utils import plotting
+
+        return plotting.plot_gp_l(self, ax=ax, f_l=f_l, xmin=xmin, xmax=xmax)
+
+    def plot_l(self, ax=None, f_l=None, xmin=None, xmax=None):
+        from tpubq_torch.utils import plotting
+
+        return plotting.plot_l(self, ax=ax, f_l=f_l, xmin=xmin, xmax=xmax)
+
+    def plot(self, f_l=None, xmin=None, xmax=None):
+        """The 1-D panels, or the d = 2 triptych (``plot_2d``)."""
+        from tpubq_torch.utils import plotting
+
+        if self.options.dim == 2:
+            return plotting.plot_2d(self, f_l=f_l, xmin=xmin, xmax=xmax)
+        return plotting.plot(self, f_l=f_l, xmin=xmin, xmax=xmax)
+
+    def plot_2d(self, f_l=None, n=80, xmin=None, xmax=None):
+        from tpubq_torch.utils import plotting
+
+        return plotting.plot_2d(self, f_l=f_l, n=n, xmin=xmin, xmax=xmax)
+
+    def plot_expected_squared_mean(self, ax=None, xmin=None, xmax=None):
+        from tpubq_torch.utils import plotting
+
+        return plotting.plot_expected_squared_mean_curve(self, ax=ax, xmin=xmin, xmax=xmax)
+
+    def plot_expected_variance(self, ax=None, xmin=None, xmax=None):
+        from tpubq_torch.utils import plotting
+
+        return plotting.plot_expected_variance_curve(self, ax=ax, xmin=xmin, xmax=xmax)
 
     def __repr__(self):
         ns = self.ns if self._state is not None else self._x0.shape[0]

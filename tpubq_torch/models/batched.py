@@ -29,8 +29,10 @@ flattened fleet of B·S_chunk problems through ``expected_squared_mean_batch``
 (the fleet kernels where ``fleet_scorer_supported``), then averages each
 problem's scores over its own rows before the selection.
 
-Not ported yet (ROADMAP.md, queue 1, item 2): ``BQFleet.health`` / ``save`` /
-``load``.
+Persistence and health: ``BQFleet.save`` / ``load`` write and read the whole
+batched state through ``utils.io`` (the JAX package's checkpoint layout, the
+seed as an extra); ``BQFleet.health`` is ``utils.health.check_state`` on the
+batched state, each leaf with a leading (B,) axis.
 """
 
 from __future__ import annotations
@@ -70,9 +72,6 @@ __all__ = [
 #: and scores as degenerate. The safety factor × float32 unit roundoff of the
 #: single-problem scorer (``acquire._LAM_F32``).
 _LAM_F32 = acquire._LAM_F32
-
-_NOT_PORTED = "is not ported to tpubq_torch yet (ROADMAP.md, queue 1, item 2)"
-
 
 def _shared_or_per_problem(v, B: int, d: int, what: str, per_problem_shape):
     """A 1-D measure argument: (d,) is shared, (B,) is per problem in 1-D."""
@@ -766,15 +765,31 @@ class BQFleet:
         return _np(moments[0]), _np(moments[1])
 
     # -- persistence ----------------------------------------------------------
-    def health(self):
-        raise NotImplementedError(f"BQFleet.health {_NOT_PORTED}")
+    def health(self) -> dict:
+        """Per-problem diagnostics: ``utils.health.check_state`` on the
+        batched state, every leaf with a leading (B,) axis, tensors on the
+        fleet's device."""
+        from tpubq_torch.utils import health as _health
+
+        return _health.check_state(self._states, self.options)
 
     def save(self, path, force: bool = False):
-        raise NotImplementedError(f"BQFleet.save {_NOT_PORTED}")
+        """Write the batched state, options and seed to one ``.npz``
+        (``utils.io.save_state``)."""
+        from tpubq_torch.utils.io import save_state
+
+        save_state(path, self._states, self.options, force=force, extras={"seed": self._seed})
 
     @classmethod
-    def load(cls, path, refit: bool = False) -> "BQFleet":
-        raise NotImplementedError(f"BQFleet.load {_NOT_PORTED}")
+    def load(cls, path, refit: bool = False, device="cuda") -> "BQFleet":
+        """A fleet from a ``save`` file on ``device`` (the card unless the
+        caller names another); ``refit=True`` refactors every problem in one
+        batched refit. The seed comes back with it (0 for a file without),
+        so reloaded members keep drawing independent hyper-sample streams."""
+        from tpubq_torch.utils.io import load_extras, load_state
+
+        states, opts = load_state(path, refit=refit, device=device)
+        return cls.from_states(states, opts, seed=int(load_extras(path).get("seed", 0)))
 
     def __repr__(self):
         return (f"BQFleet(B={len(self)}, ns={self.ns.tolist()}, device={self.device}, "

@@ -597,3 +597,64 @@ def _z_var_gh_terms(state: BQState, opts: BQOptions):
 
 def _z_var_qmc_terms(state: BQState, opts: BQOptions):
     return _z_var_quad_terms(state, opts, *_qmc_nodes(state, opts, opts.n_qmc))
+
+
+def Z_var_exact(state: BQState, opts: BQOptions) -> torch.Tensor:
+    """Closed-form V[Z], clamped at 0 (``Z_var_exact_terms`` gives the
+    pre-clamp terms)."""
+    raw, _ = Z_var_exact_terms(state, opts)
+    return torch.clamp(raw, min=0.0)
+
+
+def Z_var_gh(state: BQState, opts: BQOptions) -> torch.Tensor:
+    """V[Z] by the Gauss–Hermite bilinear form over the measure (``_gh_nodes``),
+    clamped at 0."""
+    raw, _ = _z_var_gh_terms(state, opts)
+    return torch.clamp(raw, min=0.0)
+
+
+def Z_var_qmc(state: BQState, opts: BQOptions) -> torch.Tensor:
+    """V[Z] by the same bilinear form over ``n_qmc`` Halton nodes (any d),
+    clamped at 0."""
+    raw, _ = _z_var_qmc_terms(state, opts)
+    return torch.clamp(raw, min=0.0)
+
+
+def Z_var_terms(state: BQState, opts: BQOptions):
+    """(raw, gross) of V[Z] before the zero clamp, through ``Z_var``'s
+    dispatch: raw < 0 with |raw| ≈ eps·gross is the rounding floor the clamp
+    exists for; |raw| a large fraction of gross is a sign error the clamp
+    would hide (``utils.health.check_state`` reports the ratio)."""
+    return _z_var_dispatch(opts)(state, opts)
+
+
+def Z_mean_and_var(state: BQState, opts: BQOptions):
+    return Z_mean(state, opts), Z_var(state, opts)
+
+
+# ---------------------------------------------------------------------------
+# Quadrature twins: the GP posteriors integrated by the trapezoid rule on a
+# dense 1-D grid ``xo``
+# ---------------------------------------------------------------------------
+
+
+def _pdf_1d(xo, state: BQState):
+    s2 = state.x_var[..., 0, :1]
+    return torch.exp(-0.5 * (xo - state.x_mean[..., :1]) ** 2 / s2) / torch.sqrt(2.0 * np.pi * s2)
+
+
+def approx_Z_mean(state: BQState, opts: BQOptions, xo) -> torch.Tensor:
+    kfn, _ = get_kernel(opts.kernel)
+    xo = torch.as_tensor(xo, dtype=state.x_s.dtype, device=state.x_s.device)
+    m_l = gpm.gp_mean(kfn, state.gp_l, xo[:, None])
+    return torch.trapezoid(m_l * _pdf_1d(xo, state), xo, dim=-1)
+
+
+def approx_Z_var(state: BQState, opts: BQOptions, xo) -> torch.Tensor:
+    kfn, _ = get_kernel(opts.kernel)
+    xo = torch.as_tensor(xo, dtype=state.x_s.dtype, device=state.x_s.device)
+    X = xo[:, None]
+    w = (gpm.gp_mean(kfn, state.gp_l, X) + state.gamma[..., None]) * _pdf_1d(xo, state)
+    C_tl = gpm.gp_cov(kfn, state.gp_log_l, X)
+    inner = torch.trapezoid(C_tl * w[..., None, :], xo, dim=-1)
+    return torch.trapezoid(inner * w, xo, dim=-1)

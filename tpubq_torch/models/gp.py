@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from tpubq_torch.ops import linalg
+from tpubq_torch.ops.kernels import get_kernel
+from tpubq_torch.utils.device import resolve_device
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -182,6 +184,17 @@ def log_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torch
     return log_mll_fn(kfn, s, x, mask, jitter)(theta, y)
 
 
+def log_mll_by_name(kernel: str):
+    """``log_mll`` of the named kernel family:
+    f(theta, s, x, y, mask, jitter=1e-12)."""
+    kfn, _ = get_kernel(kernel)
+
+    def f(theta, s, x, y, mask, jitter: float = 1e-12):
+        return log_mll(kfn, theta, s, x, y, mask, jitter)
+
+    return f
+
+
 def fit_log_mll(gp: GPState) -> torch.Tensor:
     """``log_mll`` of a fitted GP from its own factor and α (the same
     arithmetic, without factoring the Gram again); NaN where ``ok`` is False."""
@@ -203,3 +216,92 @@ def dlog_mll(kfn: Callable, theta, s, x, y, mask, jitter: float = 1e-12) -> torc
         val = log_mll(kfn, theta, s, x, y, mask, jitter)
         (g,) = torch.autograd.grad(val.sum(), theta)
     return torch.where(torch.isfinite(val)[..., None], g, torch.full_like(g, float("nan")))
+
+
+class GP:
+    """Object-style facade over the functional engine: ``GP(kernel, theta, x,
+    y, s)`` holds one fitted ``GPState`` (the jitter ladder's factor and K⁻¹)
+    with ``params`` to read and set (setting refits), ``mean``, ``cov``,
+    ``Kxx``, ``inv_Kxx``, ``log_lh``, ``dloglh_dtheta`` and ``copy``.
+
+    ``kernel`` names the family; ``device`` defaults to the CUDA card (the
+    constructor raises where there is none; ``device="cpu"`` asks for the
+    CPU) and ``dtype`` to float64. A float32 gaussian GP with d = 1 on the
+    card fits on the hand-written kernels (``gaussian_gram``,
+    ``cholesky_blocked``, ``tri_solve_blocked``), as ``gp_fit`` routes it.
+    """
+
+    def __init__(self, kernel, theta, x, y, s=0.0, jitter: float = 1e-12, device="cuda",
+                 dtype="float64"):
+        self.kernel = kernel
+        self._kfn, self._kdiagfn = get_kernel(kernel)
+        self._jitter = jitter
+        dev = resolve_device(device)
+        dtype = torch.float64 if dtype == "float64" else torch.float32
+        x = torch.as_tensor(x, dtype=dtype, device=dev)
+        if x.ndim == 1:
+            x = x[:, None]
+        y = torch.as_tensor(y, dtype=dtype, device=dev)
+        mask = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+        self._state = gp_fit(self._kfn, torch.as_tensor(theta, dtype=dtype, device=dev), s,
+                             x, y, mask, jitter)
+
+    @property
+    def x(self):
+        return self._state.x
+
+    @property
+    def y(self):
+        return self._state.y
+
+    @property
+    def s(self) -> float:
+        return float(self._state.s)
+
+    @property
+    def params(self):
+        """(theta..., s) as one numpy vector."""
+        import numpy as np
+
+        return np.concatenate([self._state.theta.detach().cpu().numpy(), [self.s]])
+
+    @params.setter
+    def params(self, p):
+        st = self._state
+        p = torch.as_tensor(p, dtype=st.x.dtype, device=st.x.device)
+        self._state = gp_fit(self._kfn, p[:-1], p[-1], st.x, st.y, st.mask, self._jitter)
+
+    @property
+    def Kxx(self):
+        st = self._state
+        return _gram(self._kfn, st.theta, st.s, st.x, st.mask)
+
+    @property
+    def inv_Kxx(self):
+        return self._state.Kinv  # formed at fit time
+
+    def _points(self, xo):
+        xo = torch.as_tensor(xo, dtype=self._state.x.dtype, device=self._state.x.device)
+        return xo[:, None] if xo.ndim == 1 else xo
+
+    def mean(self, xo):
+        return gp_mean(self._kfn, self._state, self._points(xo))
+
+    def cov(self, xo):
+        return gp_cov(self._kfn, self._state, self._points(xo))
+
+    @property
+    def log_lh(self) -> float:
+        st = self._state
+        return float(log_mll(self._kfn, st.theta, st.s, st.x, st.y, st.mask, self._jitter))
+
+    @property
+    def dloglh_dtheta(self):
+        st = self._state
+        g = dlog_mll(self._kfn, st.theta, st.s, st.x, st.y, st.mask, self._jitter)
+        return g.detach().cpu().numpy()
+
+    def copy(self):
+        new = object.__new__(GP)
+        new.__dict__.update(self.__dict__)  # GPState is immutable: safe to share
+        return new

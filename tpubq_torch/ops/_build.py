@@ -3,8 +3,9 @@
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one compiler
 process per source and all of them at once, and linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, from the sources in the package only, into
-``tpubq_torch/_build/``; the library's name carries a content hash of the
+first use, from the sources in the package only, into ``BUILD_DIR``
+(``tpubq_torch/_build/``, or the directory that
+``utils.profiling.enable_compile_cache`` names); the library's name carries a content hash of the
 sources and flags, so an edited source never loads a stale build.
 """
 

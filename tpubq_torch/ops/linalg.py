@@ -35,6 +35,7 @@ __all__ = [
     "chol_solve_vec",
     "chol_inverse",
     "masked_logdet",
+    "remove_jitter",
 ]
 
 #: Relative jitter ladder (multiples of the mean live diagonal), float64.
@@ -248,3 +249,12 @@ def masked_logdet(L: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """log|K_live| from the padded factor (pads have L_ii = 1)."""
     d = torch.diagonal(L, dim1=-2, dim2=-1)
     return 2.0 * torch.log(torch.where(mask, d, 1.0)).sum(-1)
+
+
+def remove_jitter(K: torch.Tensor, jitter, mask: torch.Tensor) -> torch.Tensor:
+    """Subtract previously applied diagonal jitter from the live block: the
+    factorizations never change the stored Gram (``jitter_cholesky`` returns
+    the jitter it applied), so this rebuilds the unconditioned matrix for
+    workflows that want it."""
+    jitter = torch.as_tensor(jitter, dtype=K.dtype, device=K.device)
+    return K - _eye(K) * jitter[..., None, None] * mask.to(K.dtype)[..., None, :]

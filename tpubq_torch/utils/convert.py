@@ -4,7 +4,7 @@
 flattened to numpy arrays under the checkpoint field names of
 ``tpubq/utils/io.py`` (``x_s``, ``gp_l.L``, ``gp_log_l.alpha``, …); ``Kinv``
 is recomputed from ``L`` where the flat dict lacks it, as the JAX loader
-does. Leaves keep their leading axes, so a fleet's batched state carries
+does (by ``linalg.chol_inverse``, the route ``gp_fit`` takes). Leaves keep their leading axes, so a fleet's batched state carries
 across as a batched state. ``load_tpubq_npz`` reads either checkpoint the JAX
 package writes, of one problem or of a fleet.
 """
@@ -37,9 +37,11 @@ def options_from_dict(d: dict, prefix: str = "") -> BQOptions:
     return BQOptions(**{k: _scalar(d[prefix + k]) for k in FIELD_NAMES if prefix + k in d})
 
 
-def state_from_numpy(flat: dict, opts: BQOptions, device="cuda", dtype=None) -> bqm.BQState:
+def state_from_numpy(flat: dict, opts: BQOptions, device="cuda", dtype=None,
+                     need_kinv: bool = True) -> bqm.BQState:
     """BQState from a flat ``{field: array}`` dict (JAX checkpoint names), on
-    ``device`` (the card unless the caller names another)."""
+    ``device`` (the card unless the caller names another). ``need_kinv=False``
+    leaves a missing ``Kinv`` as None (for a caller that refits at once)."""
     dtype = opts.torch_dtype if dtype is None else dtype
     dev = resolve_device(device)
 
@@ -56,10 +58,8 @@ def state_from_numpy(flat: dict, opts: BQOptions, device="cuda", dtype=None) -> 
                   if f"{prefix}.{f}" in flat}
         if "ok" not in fields:
             fields["ok"] = torch.ones(fields["L"].shape[:-2], dtype=torch.bool, device=dev)
-        if "Kinv" not in fields:
-            L = fields["L"]
-            eye = torch.eye(L.shape[-1], dtype=L.dtype, device=dev)
-            fields["Kinv"] = linalg.chol_solve(L, eye.expand_as(L))
+        if "Kinv" not in fields:  # as gp_fit forms it, so a reload scores bit-identically
+            fields["Kinv"] = linalg.chol_inverse(fields["L"]) if need_kinv else None
         missing = set(GPState._fields) - set(fields)
         if missing:
             raise KeyError(f"missing GPState fields: {sorted(missing)}")

@@ -93,6 +93,22 @@ before the final line):
               float64); then host times of save, load, load(refit=True),
               health and refine (utils.profiling.time_fn) and one
               utils.profiling.trace.
+4e. parallel — tpubq_torch.parallel on a (1, 1) mesh of the card (NCCL,
+              a world of one process): choose_next_sharded over 10⁴ points
+              on the testbed at its initial hypers, directly and with 10 of
+              the main path's hyper rows, marginalize_sharded on all 100; on a B = 64 fleet (the
+              fleet path's recipe, max_obs 32) fleet_choose_next_sharded,
+              fleet_Z_moments_sharded and 10 steps of
+              run_active_loop_fleet_sharded. Each result bit-identical to the
+              unsharded port's on the same inputs (choose_next, marginalize,
+              choose_next_batch, the batched moments, run_active_loop_batch);
+              exact launches per call (esm_fused once per direct choose and
+              per hyper row, esm_fleet_l / esm_fleet_tl once per fleet choose
+              or step, the others as the unsharded call's); picks and
+              moments held to float64 by the main and fleet paths' rules;
+              the host ms of sharded and unsharded fleet loops of 1 and 10
+              steps. Two or
+              more ranks need a card each: NCCL refuses two on one device.
 5. large N  — the large-max_obs path (benchmarks/large_n.py's recipe) at
               max_obs 128, 256, 512 and 1024: init_state → Z moments →
               run_active_loop (8 steps, incremental False, True, "auto") →
@@ -2075,6 +2091,206 @@ def facade_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# parallel/: the sharded functions on a (1, 1) NCCL mesh of the card
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS, PARALLEL_CHOOSE_N = 10, 10
+
+
+def _identical(a, b) -> bool:
+    """Tensors (and tuples or states of them) equal bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return len(a) == len(b) and all(_identical(x, y) for x, y in zip(a, b))
+
+
+def parallel_path(dev, rows, label: str) -> dict:
+    """``tpubq_torch.parallel`` on a (1, 1) mesh of the card (see the module
+    docstring, phase 4e): every sharded function once, its launches counted
+    per call; then the unsharded port on the same inputs (bit-identical
+    results, the same launches) and the float64 rules of the main and fleet
+    paths; then the host ms of sharded and unsharded fleet steps. ``rows``:
+    the main path's 100 θ_tl rows (float32 on the card)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpubq_torch import BQFleet
+    from tpubq_torch.models import acquire, batched, bq as bqm, marginalize as margm
+    from tpubq_torch.ops import hopper_kernels as hk
+    from tpubq_torch.parallel import mesh as pmesh, sharded as sh
+
+    # the testbed at its initial hypers (after the main path's loop the float32 scorer
+    # resolves no grid point, and its picks could not be held to float64)
+    x = testbed_x(False)
+    bq, bq64 = make_bq(x, dev, "float32", s=S_MAIN), make_bq(x, "cpu", "float64", s=S_MAIN)
+    st, opts, st64, opts64 = bq.state, bq.options, bq64.state, bq64.options
+    grid = np.linspace(-4.0, 4.0, G)
+    grid64 = torch.as_tensor(grid, dtype=torch.float64)
+    grid_dev = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    # the fleet path's recipe at its initial hypers, observed through one likelihood (the
+    # loop maps one loglik_fn over the problems): the testbed's N(x; 0.2, 0.5²)
+    xs, _, _ = fleet_data(FLEET_B, FLEET_N_OBS)
+    kw = dict(params_tl=PARAMS_TL, params_l=PARAMS_L, n_candidate=12, candidate_thresh=0.2,
+              max_obs=FLEET_MAX_OBS, s=S_MAIN)
+    fleet64 = BQFleet(xs, f_l(xs), device="cpu", dtype="float64", **kw)
+    fleet = BQFleet(xs, f_l(xs), device=dev, dtype="float32", **kw)
+    fst, fopts = fleet.states, fleet.options
+    lik = lambda x: torch.exp(-0.5 * ((x[0] - MU_L) / SIG_L) ** 2) / (SIG_L * math.sqrt(2.0 * math.pi))  # noqa: E731
+
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh(device=dev)
+    mesh_seconds = time.perf_counter() - t0
+    try:
+        calls, ref_calls = {}, {}
+        zero_counts()
+        total0 = marg_counts()
+        out = {
+            "choose_next": marg_call(lambda: sh.choose_next_sharded(st, opts, grid_dev, mesh), calls, "choose_next"),
+            "choose_next_n10": marg_call(lambda: sh.choose_next_sharded(st, opts, grid_dev, mesh,
+                                                                        rows[:PARALLEL_CHOOSE_N]),
+                                         calls, "choose_next_n10"),
+            "marginalize": marg_call(lambda: sh.marginalize_sharded(st, opts, rows, mesh), calls, "marginalize"),
+            "fleet_choose_next": marg_call(lambda: sh.fleet_choose_next_sharded(fst, fopts, grid_dev, mesh), calls,
+                                           "fleet_choose_next"),
+            "fleet_Z_moments": marg_call(lambda: sh.fleet_Z_moments_sharded(fst, fopts, mesh), calls,
+                                         "fleet_Z_moments"),
+            "fleet_loop": marg_call(lambda: sh.run_active_loop_fleet_sharded(fst, fopts, lik, grid_dev,
+                                                                             PARALLEL_STEPS, mesh),
+                                    calls, "fleet_loop"),
+        }
+        launches = {k: v for k, v in delta(total0, marg_counts()).items() if k in MARG_WRAPPERS}
+
+        # ---- everything below compares; none of it counts as the path's launches
+        ref = {
+            "choose_next": marg_call(lambda: acquire.choose_next(st, opts, grid_dev), ref_calls, "choose_next"),
+            "choose_next_n10": marg_call(lambda: acquire.choose_next(st, opts, grid_dev, rows[:PARALLEL_CHOOSE_N]),
+                                         ref_calls, "choose_next_n10"),
+            "marginalize": marg_call(lambda: margm.marginalize(st, opts, rows), ref_calls, "marginalize"),
+            "fleet_choose_next": marg_call(lambda: batched.choose_next_batch(fst, fopts, grid_dev), ref_calls,
+                                           "fleet_choose_next"),
+            "fleet_Z_moments": marg_call(lambda: (batched.Z_mean_batch(fst, fopts), batched.Z_var_batch(fst, fopts)),
+                                         ref_calls, "fleet_Z_moments"),
+            "fleet_loop": marg_call(lambda: batched.run_active_loop_batch(fst, fopts, lik, grid_dev, PARALLEL_STEPS),
+                                    ref_calls, "fleet_loop"),
+        }
+        identical = {k: _identical(out[k], ref[k]) for k in out}
+        E = hk.esm_fused_launches(opts.max_nsc, opts.max_obs, opts.dim)
+        want = {"choose_next": dict(esm_fused=E, esm_fleet_l=0), "choose_next_n10": dict(esm_fused=PARALLEL_CHOOSE_N * E),
+                "marginalize": dict(esm_fused=0, esm_fleet_l=0),
+                "fleet_choose_next": dict(esm_fleet_l=1, esm_fleet_tl=1, esm_fused=0),
+                "fleet_Z_moments": dict(esm_fleet_l=0, esm_fused=0),
+                "fleet_loop": dict(esm_fleet_l=PARALLEL_STEPS, esm_fleet_tl=PARALLEL_STEPS, esm_fused=0)}
+        launch_failures = {}
+        for k, w in want.items():
+            w = {**{q: ref_calls[k][q] for q in MARG_WRAPPERS}, **w}  # the unsharded call's, where not fixed above
+            bad = {q: (calls[k][q], v) for q, v in w.items() if calls[k][q] != v or ref_calls[k][q] != v}
+            if bad:
+                launch_failures[k] = bad
+
+        # float64: the single problem's picks by the main path's rules, marginalize on the same rows
+        x1, _ = out["choose_next"]
+        gap, err, n_ok = pick_gap(st, opts, st64, opts64, float(x1[0]), grid_dev, grid64)
+        r10 = rows[:PARALLEL_CHOOSE_N]
+        esm32 = torch.zeros(G, dtype=torch.float64)
+        deg32 = torch.zeros(G, dtype=torch.bool)
+        for r in r10:
+            st_r = bqm.apply_hyper_sample(st, opts, r)
+            esm32 += hk.esm_fused_plain(*acquire.esm_fused_inputs(st_r, opts, grid_dev[:, None])).double().cpu()
+            deg32 |= acquire._esm_affine_terms(st_r, opts, grid_dev[:, None])[2].cpu()
+        _, esm64 = acquire.choose_next(st64, opts64, grid64, r10.double().cpu())
+        near = (((grid64[:, None] - st64.x_s[None, :, 0]).abs() < opts.candidate_thresh) & st64.obs_mask).any(1)
+        x10, _ = out["choose_next_n10"]
+        mgap, merr, mn_ok = marg_pick_gaps((esm32 / len(r10))[None], deg32[None], esm64[None], near[None],
+                                           (grid64 - float(x10[0])).abs().argmin()[None])
+        marg = marg_vs_f64(*out["marginalize"], *margm.marginalize(st64, opts64, rows.double().cpu(),
+                                                                   (bqm.Z_mean, bqm.Z_var, _z_var_gh)))
+
+        # float64: the fleet's picks by the fleet path's rule, its moments, the loop replayed in
+        # float32 on its own picks (which must reach its final state) with the float64 fleet beside it
+        rel = lambda a, b: float(np.max(np.abs(np.asarray(a, np.float64) - b) / np.abs(b)))  # noqa: E731
+        fx, _ = out["fleet_choose_next"]
+        fgap, ferr, fn_ok, _ = fleet_pick_gaps(fst, fopts, fleet64.states, fleet64.options, fx[:, 0].cpu().numpy(),
+                                               grid_dev, grid64)
+        gaps, errs, resolved = [fgap], [ferr], [fn_ok]
+        zm, zv = (z.cpu().numpy() for z in out["fleet_Z_moments"])
+        z_rel, zv_rel = [rel(zm, fleet64.Z_mean())], [rel(zv, fleet64.Z_var())]
+        final, (zm_t, zv_t) = out["fleet_loop"]
+        ns0 = fst.ns[0].item()
+        picks = final.x_s[:, ns0:ns0 + PARALLEL_STEPS, 0].cpu().numpy().T  # (steps, B)
+        s32 = fst
+        vlik = torch.vmap(lik)
+        for i in range(PARALLEL_STEPS):
+            g_, e_, n_, _ = fleet_pick_gaps(s32, fopts, fleet64.states, fleet64.options, picks[i], grid_dev, grid64)
+            gaps.append(g_)
+            errs.append(e_)
+            resolved.append(n_)
+            xn = torch.as_tensor(picks[i], dtype=torch.float32, device=dev)[:, None]
+            s32 = batched.add_observation_batch(s32, fopts, xn, vlik(xn))
+            fleet64.add_observation(picks[i][:, None], f_l(picks[i]))
+            z_rel.append(rel(zm_t[i].cpu().numpy(), fleet64.Z_mean()))
+            zv_rel.append(rel(zv_t[i].cpu().numpy(), fleet64.Z_var()))
+        replay_identical = _identical(s32, final)
+        gaps, errs, resolved = torch.stack(gaps), torch.stack(errs), torch.stack(resolved)
+        gap_ok = torch.isnan(gaps) | (gaps <= torch.clamp(2.0 * errs, min=ESM_ARGMAX_RTOL))
+
+        # host ms of fleet loops (choose → observe → refit at B = 64, G = 10⁴) of 1 and of
+        # PARALLEL_STEPS steps, sharded and not, in turns; a sharded call ends in the gather
+        # of the final state (one all_gather a leaf)
+        loop = dict(sharded=lambda n: sh.run_active_loop_fleet_sharded(fst, fopts, lik, grid_dev, n, mesh,
+                                                                       record_moments=False),
+                    unsharded=lambda n: batched.run_active_loop_batch(fst, fopts, lik, grid_dev, n,
+                                                                     record_moments=False))
+        turns = [(k, n, host_ms(lambda: loop[k](n), iters=5, warmup=1))
+                 for n in (1, PARALLEL_STEPS) for k in ("sharded", "unsharded", "unsharded", "sharded")]
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+
+    res = dict(
+        mesh=list(mesh.shape), backend=backend, B=FLEET_B, G=G, steps=PARALLEL_STEPS, choose_n=PARALLEL_CHOOSE_N,
+        marginalize_n=len(rows), calls=calls, unsharded_calls=ref_calls, launches=launches,
+        bit_identical=identical, loop_replay_bit_identical=replay_identical, launch_failures=launch_failures,
+        pick_gap=gap, esm_f32_err=err, resolved_points=n_ok, marg_pick_gap=float(mgap[0]),
+        marg_esm_f32_err=float(merr[0]), marg_resolved_points=int(mn_ok[0]), marginalize_vs_f64=marg,
+        fleet_Z_mean_rel=max(z_rel), fleet_Z_var_rel=max(zv_rel),
+        fleet_pick_gap_max=float(torch.nan_to_num(gaps, nan=0.0).max()),
+        fleet_resolved_points_min_per_step=resolved.min(1).values.tolist(),
+        fleet_picks_on_the_plateau_per_step=torch.isnan(gaps).sum(1).tolist(),
+        mesh_seconds=mesh_seconds, loop_host_ms_turns=turns,
+        step_host_ms={k: float(np.mean([t for q, n, t in turns if q == k and n == PARALLEL_STEPS])) / PARALLEL_STEPS
+                      for k in ("sharded", "unsharded")},
+        one_step_call_host_ms={k: float(np.mean([t for q, n, t in turns if q == k and n == 1]))
+                               for k in ("sharded", "unsharded")},
+        nvidia_smi=label,
+        tol=dict(Z_mean=ZMEAN_RTOL, Z_var=ZVAR_RTOL, marg_mean=MARG_MEAN_RTOL, esm_argmax=ESM_ARGMAX_RTOL),
+    )
+    emit("parallel_path", **res)
+    check(all(identical.values()), f"each sharded result bit-identical to the unsharded port's on a (1, 1) mesh ({identical})")
+    check(replay_identical, "the fleet loop's picks, replayed in float32, reach its final state bit for bit")
+    check(not launch_failures, f"exact launches of the sharded calls: {launch_failures}")
+    check(all(launches[k] > 0 for k in ("esm_fused", "chol_batch", "esm_fleet_l", "esm_fleet_tl", "gaussian_gram",
+                                        "cholesky_blocked", "tri_solve_blocked")),
+          f"every kernel of the parallel path launched ({launches})")
+    check(n_ok > 0 and mn_ok[0] > 0, f"the f32 scorer resolves points, directly and under every row ({n_ok}, {mn_ok})")
+    check(gap <= max(ESM_ARGMAX_RTOL, 2.0 * err),
+          f"the sharded pick is the f64 ESM maximum over the resolved points ({gap}, {err}, {n_ok})")
+    check(bool(torch.isnan(mgap).all() or mgap[0] <= max(ESM_ARGMAX_RTOL, 2.0 * float(merr[0]))),
+          f"the sharded marginalized pick is the f64 optimum over the resolved points ({res['marg_pick_gap']})")
+    check(marg["finite"] and marg["Z_mean_max_rel"] <= MARG_MEAN_RTOL and marg["Z_var_mean_rel"] <= ZVAR_RTOL,
+          f"sharded marginalize f32 card vs f64 CPU ({marg})")
+    check(res["fleet_Z_mean_rel"] <= ZMEAN_RTOL and res["fleet_Z_var_rel"] <= ZVAR_RTOL,
+          f"sharded fleet moments f32 card vs f64 CPU ({res['fleet_Z_mean_rel']}, {res['fleet_Z_var_rel']})")
+    check(bool(gap_ok.all()), "each sharded fleet pick is the f64 ESM maximum over the resolved points")
+    check(bool((resolved[0] > 0).all()), "the f32 fleet scorer resolves points for every problem at the start")
+    return {"launches": launches, "step_host_ms": res["step_host_ms"],
+            "one_step_call_host_ms": res["one_step_call_host_ms"]}
+
+
+# ---------------------------------------------------------------------------
 # the large-max_obs path: gaussian_gram, cholesky_blocked, tri_solve_blocked,
 # cholesky_batched
 # ---------------------------------------------------------------------------
@@ -3124,6 +3340,7 @@ def main() -> int:
     mg = marginalize_path(dev)
     fam = families_path(dev)
     fc = facade_path(dev)
+    pp = parallel_path(dev, mp["thetas"], label)
     lp = large_n_path(dev)
     lf = large_fit(dev)
     esm_size_routes(dev)
@@ -3188,10 +3405,11 @@ def main() -> int:
              shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
     kernels += large_kernel_entries(lp, lk, lt)
-    for k in kernels:  # launches on the marginalize path (phase 4b) and each family's path (4c)
+    for k in kernels:  # launches on the marginalize (4b), family (4c), facade (4d) and parallel (4e) paths
         k["marg_launches"] = mg["launches"][k["name"]]
         k["families_launches"] = {run: n[k["name"]] for run, n in fam.items()}
         k["facade_launches"] = fc["launches"][k["name"]]
+        k["parallel_launches"] = pp["launches"][k["name"]]
     by_name = {k["name"]: k for k in kernels}
     by_name["chol_batch"].update(fleet_launches=fp["launches"]["chol_batch"],
                                  large_n_launches=lp["launches"]["chol_batch"],

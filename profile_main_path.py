@@ -47,7 +47,15 @@ Pieces, on the testbed of chip_smoke.py (s = 0.01, max_obs 32, a
   2-D); ``family_fit_matern52_d1`` — its ``fit_hypers`` (L-BFGS over
   autograd, 10 restarts, both GPs); ``family_fleet_fit`` /
   ``family_fleet_step`` — the Matérn-5/2 fleet of 64 problems: ``fit`` (all
-  640 restart rows in one lock-step L-BFGS) and a step after it.
+  640 restart rows in one lock-step L-BFGS) and a step after it;
+* ``parallel_loop`` / ``parallel_loop_unsharded`` — ten steps of the fleet
+  loop at B = 64 (chip_smoke.py's ``parallel_path`` fleet, at its initial
+  hypers) through ``run_active_loop_fleet_sharded`` on a (1, 1) NCCL mesh,
+  and through ``run_active_loop_batch``; beside them
+  ``parallel_collectives``, the host µs to enqueue one NCCL ``all_reduce``,
+  one ``all_gather`` and one elementwise add of a (64,) tensor on that mesh
+  and the µs of each until the device is done (200 calls), and the sharded
+  loop's per-operator table by host time in ``--out``.
 
 For each piece it prints one JSON line: the host-clock wall time without the
 profiler (mean of ``--iters`` calls, each ending in a synchronize), the device
@@ -86,6 +94,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -195,7 +204,61 @@ def main() -> int:
             profile_large_fit(dev, out, args.profiles)
         if want("family"):
             profile_families(dev, args.iters, out, want, args.profiles)
+        if want("parallel"):
+            profile_parallel(dev, grid, args.iters, out, args.profiles)
     return 0
+
+
+def profile_parallel(dev, grid, iters: int, out, profiles: int = 1) -> None:
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpubq_torch import BQFleet
+    from tpubq_torch.models import batched
+    from tpubq_torch.parallel import mesh as pmesh, sharded as sh
+
+    xs, _, _ = cs.fleet_data(cs.FLEET_B, cs.FLEET_N_OBS)
+    fleet = BQFleet(xs, cs.f_l(xs), device=dev, dtype="float32", params_tl=cs.PARAMS_TL, params_l=cs.PARAMS_L,
+                    n_candidate=12, candidate_thresh=0.2, max_obs=cs.FLEET_MAX_OBS, s=cs.S_MAIN)
+    st, opts = fleet.states, fleet.options
+    g = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    lik = lambda x: torch.exp(-0.5 * ((x[0] - cs.MU_L) / cs.SIG_L) ** 2) / (cs.SIG_L * (2.0 * np.pi) ** 0.5)  # noqa: E731
+    steps = cs.PARALLEL_STEPS
+    mesh = pmesh.make_mesh(device=dev)
+    try:
+        sharded = lambda: sh.run_active_loop_fleet_sharded(st, opts, lik, g, steps, mesh, record_moments=False)  # noqa: E731
+        profile_piece("parallel_loop", sharded, iters, out, profiles)
+        profile_piece("parallel_loop_unsharded",
+                      lambda: batched.run_active_loop_batch(st, opts, lik, g, steps, record_moments=False),
+                      iters, out, profiles)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sharded()
+            torch.cuda.synchronize()
+        out.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25) + "\n")
+        t = torch.zeros(cs.FLEET_B, device=dev)
+        parts = [torch.empty_like(t)]
+        group = mesh.get_group(pmesh.AXIS_GRID)
+
+        def us(fn, n=200):
+            """(host µs to enqueue one call, µs per call until the device is done) over n calls."""
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            return 1e6 * (t1 - t0) / n, 1e6 * (time.perf_counter() - t0) / n
+
+        res = dict(piece="parallel_collectives", backend=dist.get_backend(),
+                   all_reduce_us=us(lambda: dist.all_reduce(t, group=group)),
+                   all_gather_us=us(lambda: dist.all_gather(parts, t, group=group)),
+                   elementwise_add_us=us(lambda: t.add_(0.0)))
+        out.write(json.dumps(res) + "\n")
+        print(json.dumps(res), flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 def profile_families(dev, iters: int, out, want, profiles: int = 1) -> None:

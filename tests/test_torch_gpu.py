@@ -1185,3 +1185,41 @@ def test_health_float32_single_and_fleet_on_card(cuda):
     dh = fleet.health()
     assert dh["ns"].shape == (6,) and dh["gp_l"]["cond_estimate"].shape == (6,)
     assert bool(dh["factor_ok_l"].all()) and bool(dh["alpha_l_finite"].all())
+
+
+def test_sharded_fleet_on_a_one_card_nccl_mesh_is_bit_identical(cuda):
+    """A (1, 1) NCCL mesh of one card (a world of one process): the sharded
+    fleet choose and one step of the sharded fleet loop equal the unsharded
+    ones bit for bit (float32, B = 16, G = 1,001: the fleet kernels)."""
+    import math
+
+    import torch.distributed as dist
+
+    from tpubq_torch.parallel import mesh as pmesh, sharded as sh
+
+    rng = np.random.RandomState(3)
+    xs = np.stack([np.linspace(-2.2, 2.2, 8) + 0.03 * rng.standard_normal(8) for _ in range(16)])
+    ls = np.exp(-0.5 * ((xs - 0.2) / 0.5) ** 2) / (0.5 * math.sqrt(2.0 * math.pi))
+    opts = BQOptions(n_candidate=12, candidate_thresh=0.2, max_obs=16, dtype="float32")
+    st = batched.init_batch(xs, ls, opts, params_tl=PARAMS_TL, params_l=PARAMS_L, s_tl=0.01, s_l=0.01, device=cuda)
+    grid = torch.linspace(-4.0, 4.0, 1001, device=cuda)
+
+    def lik(x):
+        return torch.exp(-0.5 * ((x[0] - 0.2) / 0.5) ** 2) / (0.5 * math.sqrt(2.0 * math.pi))
+
+    assert not dist.is_initialized()
+    mesh = pmesh.make_mesh(device=cuda)
+    try:
+        assert mesh.shape == (1, 1) and dist.get_backend() == "nccl"
+        launches = hk.esm_fleet_l.launches
+        x_s, sc_s = sh.fleet_choose_next_sharded(st, opts, grid, mesh)
+        assert hk.esm_fleet_l.launches == launches + 1
+        x_u, sc_u = batched.choose_next_batch(st, opts, grid)
+        assert torch.equal(x_s, x_u) and torch.equal(sc_s, sc_u)
+        f_s, (zm_s, zv_s) = sh.run_active_loop_fleet_sharded(st, opts, lik, grid, 1, mesh)
+        f_u, (zm_u, zv_u) = batched.run_active_loop_batch(st, opts, lik, grid, 1)
+        for a, b in ((f_s.x_s, f_u.x_s), (f_s.gp_l.Kinv, f_u.gp_l.Kinv), (f_s.gp_log_l.alpha, f_u.gp_log_l.alpha),
+                     (zm_s, zm_u), (zv_s, zv_u)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()

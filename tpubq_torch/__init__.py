@@ -1,7 +1,6 @@
 """tpubq_torch — the PyTorch / CUDA port of tpubq's Bayesian Quadrature.
 
-The single-device surface of the JAX package (``tpubq``), ported to
-PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and
+The JAX package (``tpubq``), ported to PyTorch: the Osborne-style BQ estimator with a GP on the log-likelihood and
 an exp-linearized GP on the likelihood, multi-restart hyperparameter
 fitting, ``Z_mean``/``Z_var``, expected-squared-mean scoring,
 ``choose_next`` (with off-grid refinement) / ``add_observation`` and the
@@ -11,7 +10,9 @@ together), for the five kernel families: gaussian, periodic, Matérn-5/2,
 Matérn-3/2 and rational quadratic; with health diagnostics and checkpoints
 of one problem or a fleet (``utils.health``, ``utils.io``: the JAX package's
 file layout, so a checkpoint of either package loads in both), the ``GP``
-facade, plotting and profiling. ``parallel/`` (multi-device) is not ported.
+facade, plotting and profiling; and ``parallel/``: the sharded scorer,
+marginalization and fleet loop on ``torch.distributed``, one process per
+device over a (dp, sp) ``DeviceMesh`` (NCCL on the card, gloo on the CPU).
 Nine kernels are written by hand for Hopper (sm_90a) in ``csrc/``,
 one for each Pallas kernel of the JAX package: the fused ESM scorer, the two
 batched Choleskys, the fused MLL-and-gradient of the fit, the two halves of

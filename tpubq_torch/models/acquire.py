@@ -59,13 +59,19 @@ __all__ = [
 _LAM_F32 = 32.0 * 2.0**-23
 
 
-def demote_near_observed(scores, x_a, x_s, obs_mask, thresh):
+def demote_near_observed(scores, x_a, x_s, obs_mask, thresh, group=None):
     """Selection-only transform: grid points within ``thresh`` (sup-norm) of a
     live observation are excluded from the argmax; when every point is
     excluded, a distance-proportional demotion picks the point farthest from
     observed territory. Reported scores are not changed. ``scores``, ``x_s``
     and ``obs_mask`` may carry a leading problem axis over a shared ``x_a``;
-    the all-excluded fallback is then decided per problem."""
+    the all-excluded fallback is then decided per problem.
+
+    ``group``: the process group over which the grid is sharded
+    (``parallel/sharded.py``; JAX's ``axis_name``). The all-excluded flag is
+    then decided over the whole grid, an int32 ``all_reduce(MIN)``: one
+    shard may see only excluded points while another still holds fresh
+    ones."""
     dist = (x_a[:, None, :] - x_s[..., None, :, :]).abs().amax(-1)
     dist = torch.where(obs_mask[..., None, :], dist, torch.full_like(dist, math.inf))
     d_min = dist.amin(-1)
@@ -73,7 +79,12 @@ def demote_near_observed(scores, x_a, x_s, obs_mask, thresh):
     closeness = torch.clamp(1.0 - d_min / thresh, 0.0, 1.0)
     demoted = scores - closeness * (0.25 * scores.abs() + 1e-20)
     excluded = torch.where(near, torch.full_like(scores, -math.inf), scores)
-    return torch.where(near.all(-1, keepdim=True), demoted, excluded)
+    all_near = near.all(-1, keepdim=True)
+    if group is not None:
+        flag = all_near.to(torch.int32)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN, group=group)
+        all_near = flag.bool()
+    return torch.where(all_near, demoted, excluded)
 
 
 def as_points(x_a, dim: int, dtype, device):

@@ -107,7 +107,14 @@ def choose_candidates(x_s, obs_mask, opts: BQOptions):
     d = x_s.shape[-1]
     lo, hi = live_bounds(x_s, obs_mask)
     if d == 1:
-        t = torch.linspace(0.0, 1.0, opts.n_candidate, dtype=x_s.dtype, device=x_s.device)[:, None]
+        # jnp.linspace(0, 1, n) as XLA evaluates it, to the last bit: i·(1/(n − 1)),
+        # the last point exactly 1 (torch.linspace rounds other points otherwise,
+        # and a candidate at candidate_thresh from an observation then flips its mask)
+        n = opts.n_candidate
+        t = torch.arange(n, dtype=x_s.dtype, device=x_s.device) * (1.0 / max(n - 1, 1))
+        if n > 1:
+            t[-1] = 1.0
+        t = t[:, None]
     else:
         from scipy.stats import qmc
 

@@ -109,6 +109,23 @@ before the final line):
               the host ms of sharded and unsharded fleet loops of 1 and 10
               steps. Two or
               more ranks need a card each: NCCL refuses two on one device.
+4f. oracle — the port held to the C++ oracle (native/bq_native.cpp, built
+              with the host's g++ by tpubq_torch.utils.native: on this
+              machine, without JAX, the one reference that is not port code)
+              and to the quadrature twins: the testbed at s = 0 (the oracle's
+              κ = h²), its initial state and the states after each of 5
+              active steps, scored over 10⁴ points by
+              expected_squared_mean_fused (float32, one esm_fused call a
+              state, its launches exact) and by the float64 path on the
+              card, each held to native.esm_grid on the points the oracle
+              and the port's guard both resolve (float64 at 1e-8, float32 at
+              1e-3 of the largest oracle score, the float32 pick by the main
+              path's rule); the float64 closed forms on the card against the
+              oracle on the testbed's observations and on 1,024 seeded points
+              (gaussian 1e-12, periodic at tests/test_native.py's
+              tolerances); the closed forms of all five families against
+              their trapezoid twins on the card, at the JAX suite's grids
+              and tolerances.
 5. large N  — the large-max_obs path (benchmarks/large_n.py's recipe) at
               max_obs 128, 256, 512 and 1024: init_state → Z moments →
               run_active_loop (8 steps, incremental False, True, "auto") →
@@ -137,7 +154,7 @@ before the final line):
               INCREMENTAL_AUTO_WINDOW is read from.
 
 Then the kernel summary line (each kernel with its launches on the main,
-marginalize, family and facade paths), the nvidia-smi line, and the final
+marginalize, family, facade, parallel and oracle paths), the nvidia-smi line, and the final
 {"ok": true, ...} line. Imports nothing from JAX or the JAX package.
 """
 
@@ -2291,6 +2308,266 @@ def parallel_path(dev, rows, label: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the C++ oracle and the quadrature twins
+# ---------------------------------------------------------------------------
+
+# The oracle (native/bq_native.cpp, built with the host's g++) shares no code
+# with the port: on this machine, without JAX, it is the one reference that is
+# not port code. Its ESM algebra takes κ = h², the port's s² + jitter more, so
+# its states are the testbed's at s = 0, the initial one and those after each
+# of ORACLE_STEPS active steps (the float32 log-GP Gram turns singular after ~8).
+ORACLE_STEPS = 5
+ORACLE_ESM_RTOL = 1e-8  # float64 scorer against the oracle, per point (tests/test_native.py)
+# (rtol, atol) of each closed form against the oracle (tests/test_native.py)
+ORACLE_INT_TOLS = dict(int_K=(1e-12, 0.0), int_int_K=(1e-12, 0.0), int_K1_K2=(1e-12, 0.0),
+                       int_int_K1_K2=(1e-12, 0.0), int_K1_int_K2=(1e-12, 0.0), int_K_periodic=(1e-12, 0.0),
+                       int_int_K1_K2_periodic=(1e-11, 1e-15))
+ORACLE_POINTS, ORACLE_SEED = 1024, 14
+# Closed forms against the trapezoid twins, float64 on the card, with the JAX
+# suite's grids and tolerances: (kernel, θ1, θ2, μ, σ², x1, x2, nodes, half-width,
+# {quantity: rtol}); the periodic cross family on its own grid
+# (tests/test_periodic_exact.py's two tests), rq at α ≤ 30 on the gaussian's.
+_TX1, _TX2 = tuple(np.linspace(-1.6, 1.4, 5)), (-0.9, 0.3, 1.1)
+_GX = np.random.RandomState(9)
+_GX1, _GX2 = tuple(_GX.randn(4)), tuple(_GX.randn(3))  # tests/test_integrals.py's points
+TWIN_CASES = (
+    ("gaussian", (0.8, 0.7), (1.3, 0.4), 0.3, 0.9, _GX1, _GX2, 8001, 10.0,
+     dict(int_K=1e-6, int_int_K=1e-6, P=1e-6, T=1e-6, U=1e-6)),
+    ("matern52", (0.5, 0.45), (0.8, 0.7), 0.1, 0.9, _TX1, _TX2, 6001, 9.0,
+     dict(int_K=2e-6, int_int_K=2e-6, P=2e-6, T=2e-6, U=2e-6)),
+    ("matern32", (0.5, 0.45), (0.8, 0.7), 0.1, 0.9, _TX1, _TX2, 6001, 9.0,
+     dict(int_K=2e-6, int_int_K=2e-6, P=2e-6, T=2e-6, U=2e-6)),
+    ("periodic", (1.3, 0.4, 0.7), (1.3, 0.4, 0.7), 0.3, 1.5, (0.85, -1.2, 2.0), (), 40001, 12.0,
+     dict(int_K=1e-9, int_int_K=1e-7)),
+    ("periodic", (1.1, 0.5, 0.9), (0.8, 0.35, 0.6), 0.1, 0.9, _TX1, _TX2, 12001, 9.0,
+     dict(P=1e-7, T=1e-6, U=1e-6)),
+    ("rq", (0.8, 0.7, 2.0), (), 0.3, 0.9, _GX1, (), 8001, 10.0, dict(int_K=1e-6)),
+    ("rq", (0.8, 0.7, 30.0), (), 0.3, 0.9, _GX1, (), 8001, 10.0, dict(int_K=1e-6)),
+)
+PERIODIC_SERIES = 90  # harmonics of the periodic closed forms against the twins
+
+
+def oracle_resolved(st64, opts, grid) -> np.ndarray:
+    """The points the oracle resolves, by its own rule on its own inputs: at
+    least ``candidate_thresh`` from every live row of the linear GP, and a
+    Schur complement h_l² − ‖L⁻¹k‖² above 1e-14 (float64, on the host)."""
+    from scipy.linalg import solve_triangular
+
+    m = st64.sc_mask.cpu().numpy()
+    xsc = st64.x_sc.double().cpu().numpy()[m, 0]
+    L = st64.gp_l.L.double().cpu().numpy()[np.ix_(m, m)]
+    h, w = st64.gp_l.theta.double().cpu().numpy()[:2]
+    d = xsc[None, :] - grid[:, None]
+    v = solve_triangular(L, (h * h * np.exp(-0.5 * (d / w) ** 2)).T, lower=True)
+    near = (np.abs(d) < opts.candidate_thresh).any(1)
+    return ~near & (h * h - (v * v).sum(0) > 1e-14)
+
+
+def oracle_integrals(dev, x_obs) -> dict:
+    """The port's float64 closed forms on the card against the oracle, on the
+    testbed's observations and on ORACLE_POINTS points from the seed: the
+    gaussian family at the testbed's hypers (θ_l, θ_tl) and measure, the
+    periodic pair at tests/test_native.py's."""
+    import torch
+
+    from tpubq_torch.ops import integrals as igr
+    from tpubq_torch.utils import native
+
+    (h1, w1), (h2, w2), mu, s2 = PARAMS_L, PARAMS_TL, BQ_KW["x_mean"], BQ_KW["x_var"]
+    per_x, t1, t2 = (1.3, 0.45, 0.8), (0.9, 0.5, 1.1), (1.2, 0.4, 0.7)
+    rng = np.random.RandomState(ORACLE_SEED)
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {}
+    for name, x in (("observations", np.asarray(x_obs, np.float64)),
+                    (f"points_{ORACLE_POINTS}", rng.uniform(-4.0, 4.0, ORACLE_POINTS))):
+        X = torch.as_tensor(x, **f64)[:, None]
+        W1, W2 = torch.tensor([w1], **f64), torch.tensor([w2], **f64)
+        M, S = torch.tensor([mu], **f64), torch.tensor([[s2]], **f64)
+        per_M, per_S = torch.tensor([0.3], **f64), torch.tensor([[0.9]], **f64)
+        T1, T2 = (tuple(torch.tensor(v, **f64) for v in t) for t in (t1, t2))
+        pairs = dict(
+            int_K=(igr.int_K(X, h1, W1, M, S), native.int_K(x, h1, w1, mu, s2)),
+            int_int_K=(igr.int_int_K(1, h1, W1, M, S)[None], np.atleast_1d(native.int_int_K(h1, w1, mu, s2))),
+            int_K1_K2=(igr.int_K1_K2(X, X, h1, W1, h2, W2, M, S), native.int_K1_K2(x, x, h1, w1, h2, w2, mu, s2)),
+            int_int_K1_K2=(igr.int_int_K1_K2(X, X, h1, W1, h2, W2, M, S),
+                           native.int_int_K1_K2(x, x, h1, w1, h2, w2, mu, s2)),
+            int_K1_int_K2=(igr.int_K1_int_K2(X, h1, W1, h2, W2, M, S),
+                           native.int_K1_int_K2(x, h1, w1, h2, w2, mu, s2)),
+            int_K_periodic=(igr.int_K_periodic(X, *(torch.tensor(v, **f64) for v in per_x), per_M, per_S, 64),
+                            native.int_K_periodic(x, *per_x, 0.3, 0.9, nterms=64)),
+            int_int_K1_K2_periodic=(igr.int_int_K1_K2_periodic(X, X, T1, T2, per_M, per_S, 80),
+                                    native.int_int_K1_K2_periodic(x, x, t1, t2, 0.3, 0.9, nterms=80)),
+        )
+        errs = {}
+        for q, (got, want) in pairs.items():
+            got, (rtol, atol) = got.cpu().numpy(), ORACLE_INT_TOLS[q]
+            errs[q] = dict(max_rel=float(np.max(np.abs(got - want) / np.abs(want))), n=int(want.size),
+                           ok=bool(np.allclose(got, want, rtol=rtol, atol=atol)), rtol=rtol, atol=atol)
+        out[name] = errs
+    return out
+
+
+def twin_errors(dev) -> list:
+    """The port's closed forms against its trapezoid twins (float64, on the
+    card) for every case of TWIN_CASES → one record per case."""
+    import torch
+
+    from tpubq_torch.ops import integrals as igr
+    from tpubq_torch.ops.kernels import get_kernel
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = []
+    for kernel, th1, th2, mu, s2, x1, x2, m, half, tols in TWIN_CASES:
+        t0 = time.perf_counter()
+        kfn, _ = get_kernel(kernel)
+        t = lambda v: torch.tensor(v, **f64)  # noqa: E731
+        M, S, xo = t([mu]), t([[s2]]), torch.linspace(-half, half, m, **f64)
+        X1, X2 = t(x1)[:, None], (t(x2)[:, None] if x2 else None)
+        T1, T2 = t(th1), (t(th2) if th2 else None)
+        exact, twin = {}, {}
+        if "int_K" in tols:
+            twin["int_K"] = igr.approx_int_K(kfn, T1, X1, xo, M, S)
+        if "int_int_K" in tols:
+            twin["int_int_K"] = igr.approx_int_int_K(kfn, T2, xo, M, S)
+        if "P" in tols:
+            twin["P"] = igr.approx_int_K1_K2(kfn, kfn, T1, T2, X1, X2, xo, M, S)
+            twin["T"] = igr.approx_int_int_K1_K2(kfn, kfn, T1, T2, X1, X2, xo, M, S)
+            twin["U"] = igr.approx_int_K1_int_K2(kfn, kfn, T1, T2, X1, xo, M, S)
+        if kernel == "gaussian":
+            w1, w2 = T1[1:], T2[1:]
+            exact = dict(int_K=igr.int_K(X1, th1[0], w1, M, S), int_int_K=igr.int_int_K(1, th2[0], w2, M, S),
+                         P=igr.int_K1_K2(X1, X2, th1[0], w1, th2[0], w2, M, S),
+                         T=igr.int_int_K1_K2(X1, X2, th1[0], w1, th2[0], w2, M, S),
+                         U=igr.int_K1_int_K2(X1, th1[0], w1, th2[0], w2, M, S))
+        elif kernel.startswith("matern"):
+            nu = 2.5 if kernel == "matern52" else 1.5
+            one_d = igr.int_K_matern52_1d if kernel == "matern52" else igr.int_K_matern32_1d
+            a = (T1[0], T1[1:], T2[0], T2[1:])
+            exact = dict(int_K=one_d(X1, T1[0], T1[1:], M, S), int_int_K=igr.int_int_K_matern(T2[0], T2[1:], M, S, nu),
+                         P=igr.int_K1_K2_matern(X1, X2, *a, M, S, nu), T=igr.int_int_K1_K2_matern(X1, X2, *a, M, S, nu),
+                         U=igr.int_K1_int_K2_matern(X1, *a, M, S, nu))
+        elif kernel == "periodic":
+            p1, p2 = tuple(T1), tuple(T2)
+            n = PERIODIC_SERIES
+            if "int_K" in tols:
+                exact = dict(int_K=igr.int_K_periodic(X1, *p1, M, S, n), int_int_K=igr.int_int_K_periodic(*p2, M, S, n))
+            else:
+                exact = dict(P=igr.int_K1_K2_periodic(X1, X2, p1, p2, M, S, n),
+                             T=igr.int_int_K1_K2_periodic(X1, X2, p1, p2, M, S, n),
+                             U=igr.int_K1_int_K2_periodic(X1, p1, p2, M, S, n))
+        else:
+            exact = dict(int_K=igr.int_K_rq_mixture(X1, T1[0], T1[1:-1], T1[-1], M, S))
+        errs = {}
+        for q, rtol in tols.items():
+            e, a = exact[q].reshape(-1).cpu().numpy(), twin[q].reshape(-1).cpu().numpy()
+            errs[q] = dict(max_rel=float(np.max(np.abs(e - a) / np.abs(a))), rtol=rtol)
+        torch.cuda.synchronize()
+        out.append(dict(kernel=kernel, theta1=list(th1), theta2=list(th2), nodes=m, half_width=half,
+                        seconds=time.perf_counter() - t0, errors=errs))
+    return out
+
+
+def oracle_path(dev) -> dict:
+    """Phase 4f (see the module docstring): build the oracle; score the s = 0
+    testbed's states with ``expected_squared_mean_fused`` (float32, one
+    ``esm_fused`` call a state, counted) and the float64 path on the card, and
+    hold both to the oracle on the points both resolve; then the closed forms
+    against the oracle and against the quadrature twins."""
+    import torch
+
+    from tpubq_torch.models import acquire
+    from tpubq_torch.ops import hopper_kernels as hk
+    from tpubq_torch.utils import native
+
+    t_phase = time.perf_counter()
+    info = native.build()
+    native.load()
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+
+    x = testbed_x(False)
+    bq, bq64 = make_bq(x, dev, "float32", s=0.0), make_bq(x, dev, "float64", s=0.0)
+    grid = np.linspace(-4.0, 4.0, G)
+    grid32 = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    grid64 = torch.as_tensor(grid, dtype=torch.float64, device=dev)
+    NP, NP2 = bq.options.max_nsc, bq.options.max_obs
+    per_call = hk.esm_fused_launches(NP, NP2, 1)
+
+    # the loop: one fused call a state, its pick observed by both estimators
+    c0 = {k: getattr(hk, k).launches for k in MARG_WRAPPERS}
+    states, calls, t0 = [], [], time.perf_counter()
+    for step in range(ORACLE_STEPS + 1):
+        st, opts = bq.state, bq.options
+        n0 = hk.esm_fused.launches
+        s32 = acquire.expected_squared_mean_fused(st, opts, grid32)
+        calls.append(hk.esm_fused.launches - n0)
+        sel = acquire.demote_near_observed(s32, grid32[:, None], st.x_s, st.obs_mask, opts.candidate_thresh)
+        i = int(torch.argmax(sel))
+        states.append((st, bq64.state, s32, i))
+        if step < ORACLE_STEPS:
+            xn = float(grid32[i])
+            bq.add_observation(xn, float(f_l(xn)))
+            bq64.add_observation(xn, float(f_l(xn)))
+    torch.cuda.synchronize()
+    loop_seconds = time.perf_counter() - t0
+    launches = delta(c0, {k: getattr(hk, k).launches for k in MARG_WRAPPERS})
+
+    # the comparisons (after the counts were read)
+    t0 = time.perf_counter()
+    cases = []
+    for step, (st, st64, s32, i) in enumerate(states):
+        s64 = acquire.expected_squared_mean(st64, bq64.options, grid64).cpu().numpy()
+        t_or = time.perf_counter()
+        oracle = native.esm_grid_state(st64, bq64.options, grid)
+        oracle_ms = (time.perf_counter() - t_or) * 1e3
+        res = oracle_resolved(st64, bq64.options, grid)
+        _, _, deg32, *_ = acquire._esm_affine_terms(st, bq.options, grid32[:, None])
+        _, _, deg64, *_ = acquire._esm_affine_terms(st64, bq64.options, grid64[:, None])
+        ok32, ok64 = res & ~deg32.cpu().numpy(), res & ~deg64.cpu().numpy()
+        s32 = s32.double().cpu().numpy()
+        case = dict(step=step, ns=int(st64.obs_mask.sum()), oracle_resolved=int(res.sum()), compared_f64=int(ok64.sum()),
+                    compared_f32=int(ok32.sum()), oracle_ms=oracle_ms, pick=float(grid[i]))
+        if ok64.any():
+            case["f64_max_rel"] = float(np.max(np.abs(s64 - oracle)[ok64] / np.abs(oracle[ok64])))
+        if ok32.any():
+            scale = float(np.abs(oracle[ok32]).max())
+            case["f32_max_abs_over_max"] = float(np.max(np.abs(s32 - oracle)[ok32])) / scale
+            case["f32_max_rel"] = float(np.max(np.abs(s32 - oracle)[ok32] / np.abs(oracle[ok32])))
+            best = float(oracle[ok32].max())
+            case["pick_gap"] = (best - float(oracle[i])) / best
+        cases.append(case)
+    compare_seconds = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    integrals = oracle_integrals(dev, bq64.x_s[:, 0])
+    integral_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twins = twin_errors(dev)
+    twin_seconds = time.perf_counter() - t0
+
+    res = dict(build_seconds=info["seconds"], library=os.path.relpath(info["path"], ROOT), compiler=gxx,
+               flags=list(native.CXX_FLAGS), G=G, s=0.0, steps=ORACLE_STEPS, launches=launches,
+               esm_fused_calls=calls, esm_fused_launches_per_call=per_call, cases=cases, integrals=integrals,
+               twins=twins, seconds=dict(loop=loop_seconds, compare=compare_seconds, integrals=integral_seconds,
+                                         twins=twin_seconds, phase=time.perf_counter() - t_phase),
+               tol=dict(f64_vs_oracle=ORACLE_ESM_RTOL, f32_vs_oracle_over_max=ESM_SCORE_RTOL,
+                        esm_argmax=ESM_ARGMAX_RTOL, integrals=ORACLE_INT_TOLS))
+    emit("oracle_path", **res)
+    check(all(n == per_call for n in calls) and launches["esm_fused"] == per_call * (ORACLE_STEPS + 1),
+          f"expected_squared_mean_fused launched esm_fused {per_call} times a call ({calls}, {launches})")
+    check(all(c["compared_f64"] > 0 and c["compared_f32"] > 0 for c in cases),
+          "every state has points that the oracle and the port's guards resolve")
+    check(all(c["f64_max_rel"] <= ORACLE_ESM_RTOL for c in cases), "the float64 scorer on the card against the oracle")
+    check(all(c["f32_max_abs_over_max"] <= ESM_SCORE_RTOL for c in cases), "esm_fused's float32 scores against the oracle")
+    check(all(c["pick_gap"] <= max(ESM_ARGMAX_RTOL, 2.0 * c["f32_max_rel"]) for c in cases),
+          "each float32 pick is the oracle's maximum over the compared points, up to the f32 scorer's error")
+    check(all(e["ok"] for errs in integrals.values() for e in errs.values()),
+          "the float64 closed forms on the card against the oracle")
+    check(all(e["max_rel"] <= e["rtol"] for case in twins for e in case["errors"].values()),
+          "the closed forms of the five families against their quadrature twins")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # the large-max_obs path: gaussian_gram, cholesky_blocked, tri_solve_blocked,
 # cholesky_batched
 # ---------------------------------------------------------------------------
@@ -3341,6 +3618,7 @@ def main() -> int:
     fam = families_path(dev)
     fc = facade_path(dev)
     pp = parallel_path(dev, mp["thetas"], label)
+    op = oracle_path(dev)
     lp = large_n_path(dev)
     lf = large_fit(dev)
     esm_size_routes(dev)
@@ -3405,11 +3683,12 @@ def main() -> int:
              shape=f"B={fB}, G={G}, NP2={fNP2}"),
     ]
     kernels += large_kernel_entries(lp, lk, lt)
-    for k in kernels:  # launches on the marginalize (4b), family (4c), facade (4d) and parallel (4e) paths
+    for k in kernels:  # launches on the marginalize (4b), family (4c), facade (4d), parallel (4e) and oracle (4f) paths
         k["marg_launches"] = mg["launches"][k["name"]]
         k["families_launches"] = {run: n[k["name"]] for run, n in fam.items()}
         k["facade_launches"] = fc["launches"][k["name"]]
         k["parallel_launches"] = pp["launches"][k["name"]]
+        k["oracle_launches"] = op["launches"][k["name"]]
     by_name = {k["name"]: k for k in kernels}
     by_name["chol_batch"].update(fleet_launches=fp["launches"]["chol_batch"],
                                  large_n_launches=lp["launches"]["chol_batch"],

@@ -25,7 +25,9 @@ s = 0.05 (κ up to ~1e5): the Gram at 1e-6 of h², the two Choleskys at a
 backward error of n·eps32 and within max(1e-4, 2 × the library's distance)
 of the plain (unblocked / panelled) factor, the blocked solve within
 max(1e-4, 2 × the library's distance) of float64 and within 1e-4 of its plain
-blocked substitution, bit-identical from call to call.
+blocked substitution, bit-identical from call to call. The C++ oracle
+(``tpubq_torch.utils.native``, built with the host's g++) is held to the
+port's float64 scorer on the card at rtol 1e-8, tests/test_native.py's pin.
 """
 
 import numpy as np
@@ -205,6 +207,36 @@ def test_esm_fused_kernel_matches_plain(cuda, near_duplicate):
     torch.cuda.synchronize()
     ref = hk.esm_fused_plain(*args)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_expected_squared_mean_fused_is_one_kernel_call_and_the_route(cuda):
+    """The public fused entry makes one ``esm_fused`` call (its launches, no
+    more) and returns what ``expected_squared_mean`` routes to, bit for bit."""
+    bq = _testbed_bq(cuda)
+    st, opts = bq.state, bq.options
+    grid = torch.linspace(-4.0, 4.0, 10_000, device=cuda)
+    before = hk.esm_fused.launches
+    got = acquire.expected_squared_mean_fused(st, opts, grid)
+    torch.cuda.synchronize()
+    assert hk.esm_fused.launches - before == hk.esm_fused_launches(opts.max_nsc, opts.max_obs, 1)
+    assert torch.equal(got, acquire.expected_squared_mean(st, opts, grid))
+
+
+def test_native_esm_grid_matches_the_float64_path_on_the_card(cuda):
+    """The C++ oracle (host, float64) against the port's float64 scorer on the
+    card over 10⁴ points, the testbed at s = 0: rtol 1e-8, the pin of
+    tests/test_native.py."""
+    import tpubq_torch
+    from tpubq_torch.utils import native
+
+    x = np.linspace(-2.2, 2.2, 10)
+    l = np.exp(-0.5 * ((x - 0.2) / 0.5) ** 2) / (0.5 * np.sqrt(2.0 * np.pi))
+    bq = tpubq_torch.BQ(x, l, device=cuda, dtype="float64", max_obs=32, n_candidate=12,
+                        candidate_thresh=0.2, x_mean=0.0, x_var=1.0)
+    bq.init(params_tl=PARAMS_TL, params_l=PARAMS_L)
+    grid = np.linspace(-4.0, 4.0, 10_000)
+    got = acquire.expected_squared_mean(bq.state, bq.options, torch.as_tensor(grid, device=cuda)).cpu().numpy()
+    np.testing.assert_allclose(got, native.esm_grid_state(bq.state, bq.options, grid), rtol=1e-8)
 
 
 def test_esm_fused_kernel_2d_matches_plain(cuda):

@@ -19,7 +19,8 @@ its plain twin on the CPU), the quadratic forms as tiled products, with no
 cap on the state's size. The plain path below
 (``expected_squared_mean_xla``, several (nsc × G) intermediates in device
 memory per sweep) scores float64 (the cho_solve parity contract) and the
-kernels ``esm_fused`` does not take (d > 3).
+kernels ``esm_fused`` does not take (d > 3). ``expected_squared_mean_fused``
+takes the ``esm_fused`` route whatever ``esm_route`` says.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ __all__ = [
     "esm_route",
     "expected_squared_mean",
     "expected_squared_mean_xla",
+    "expected_squared_mean_fused",
     "approx_expected_squared_mean",
     "expected_Z_var",
     "choose_next",
@@ -243,6 +245,21 @@ def expected_squared_mean(state: BQState, opts: BQOptions, x_a) -> torch.Tensor:
     if esm_route(state, opts) == "esm_fused":
         return hk.esm_fused(*esm_fused_inputs(state, opts, x_a))
     return expected_squared_mean_xla(state, opts, x_a)
+
+
+def expected_squared_mean_fused(state: BQState, opts: BQOptions, x_a, interpret=None) -> torch.Tensor:
+    """ESM scores through ``esm_fused`` whatever ``esm_route`` says: a gaussian
+    state with d ≤ 3 in float32 (the wrapper raises ``TypeError`` on another
+    dtype); on a CPU tensor the kernel's plain twin. ``interpret`` (the TPU
+    kernel's interpret mode) is accepted and ignored."""
+    del interpret
+    if opts.dim > 3 or opts.kernel != "gaussian":
+        raise ValueError(
+            "expected_squared_mean_fused supports gaussian kernels with dim <= 3; "
+            f"got kernel={opts.kernel!r}, dim={opts.dim}"
+        )
+    x_a = as_points(x_a, opts.dim, state.x_s.dtype, state.x_s.device)
+    return hk.esm_fused(*esm_fused_inputs(state, opts, x_a))
 
 
 def expected_Z_var(state: BQState, opts: BQOptions, x_a) -> torch.Tensor:

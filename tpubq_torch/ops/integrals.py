@@ -12,6 +12,9 @@ The measure is p(x) = N(x | mu, Sigma).
 * rq: a Gamma scale mixture whose nodes follow the hyperparameter α.
 * periodic (1-D): the Jacobi–Anger harmonic series.
 
+The ``approx_*`` functions are the closed forms' quadrature twins: the
+trapezoid rule on a dense 1-D grid, for any kernel function.
+
 Shapes: points ``x`` (..., n, d); ``h`` (...); ``w`` (..., d); ``alpha`` and
 ``p`` (...); ``mu`` (..., d); ``Sigma`` (..., d, d). Leading batch axes
 broadcast (marginalize passes (S,) hypers against shared points and one
@@ -52,6 +55,11 @@ __all__ = [
     "int_K1_K2_periodic",
     "int_int_K1_K2_periodic",
     "int_K1_int_K2_periodic",
+    "approx_int_K",
+    "approx_int_int_K",
+    "approx_int_K1_K2",
+    "approx_int_int_K1_K2",
+    "approx_int_K1_int_K2",
     "SWEEP_ELEMS",
 ]
 
@@ -843,3 +851,88 @@ def int_K1_int_K2_periodic(x1, t1, t2, mu, Sigma, n_series: int):
     Phi = _phi(t2f[..., None, :] - t1f[..., :, None], mu0[..., None], s2[..., None])
     inner = (Phi @ (B * _phi(-t2f, mu0, s2))[..., None])[..., 0]  # (..., 2N+1)
     return torch.real(((A * inner)[..., None] * _cis(t1f, x1, 1.0)).sum(-2))
+
+
+# ---------------------------------------------------------------------------
+# Quadrature twins: the trapezoid rule over a dense 1-D grid xo (m,), the
+# reference's approx_* checks of the closed forms. They take any kernel
+# function ``kfn(theta, x1, x2)`` of ``kernels.get_kernel``. A product larger
+# than SWEEP_ELEMS is formed in chunks of an axis that the chunk's trapezoid
+# does not sum over (the output's rows x1 or columns x2, the outer grid
+# variable of a double integral), at least one row at a time: every value
+# keeps the summation it has unchunked.
+# ---------------------------------------------------------------------------
+
+
+def _pdf_1d(xo, mu, Sigma):
+    """N(xo | mu, Sigma) of a 1-D measure on the grid → (m,)."""
+    s2 = Sigma.reshape(())
+    m = mu.reshape(())
+    return torch.exp(-0.5 * (xo - m) ** 2 / s2) / torch.sqrt(2.0 * math.pi * s2)
+
+
+def _in_row_chunks(f, n_rows: int, per_row: int, dim: int):
+    """``f(rows)`` over slices of at least one row covering n_rows (``per_row``
+    elements each, no chunk above SWEEP_ELEMS unless one row is), joined
+    along ``dim``."""
+    rows = max(1, min(n_rows, SWEEP_ELEMS // max(1, per_row)))
+    return torch.cat([f(slice(r0, r0 + rows)) for r0 in range(0, n_rows, rows)], dim=dim)
+
+
+def approx_int_K(kfn, theta, x, xo, mu, Sigma):
+    """(n,) trapezoid approximation of int_K on the 1-D grid xo (m,)."""
+    p = _pdf_1d(xo, mu, Sigma)
+    m = xo.shape[0]
+    return _in_row_chunks(lambda r: torch.trapezoid(kfn(theta, xo[:, None], x[r]) * p[:, None], xo, dim=0),
+                          x.shape[0], m, 0)
+
+
+def approx_int_int_K(kfn, theta, xo, mu, Sigma):
+    """Trapezoid approximation of int_int_K → (): the inner integral over x'
+    for each grid row x, then the outer over x."""
+    p = _pdf_1d(xo, mu, Sigma)
+    m = xo.shape[0]
+    inner = _in_row_chunks(
+        lambda r: torch.trapezoid(kfn(theta, xo[r, None], xo[:, None]) * p[None, :], xo, dim=1), m, m, 0)
+    return torch.trapezoid(inner * p, xo)
+
+
+def approx_int_K1_K2(k1fn, k2fn, t1, t2, x1, x2, xo, mu, Sigma):
+    """Trapezoid approximation of int_K1_K2 → (n1, n2)."""
+    p = _pdf_1d(xo, mu, Sigma)
+    K2p = k2fn(t2, xo[:, None], x2) * p[:, None]  # (m, n2)
+    m, n2 = K2p.shape
+
+    def rows(r):
+        K1 = k1fn(t1, x1[r], xo[:, None])  # (r, m)
+        return torch.trapezoid(K1[:, :, None] * K2p[None, :, :], xo, dim=1)
+
+    return _in_row_chunks(rows, x1.shape[0], m * n2, 0)
+
+
+def approx_int_int_K1_K2(k1fn, k2fn, t1, t2, x1, x2, xo, mu, Sigma):
+    """Trapezoid approximation of int_int_K1_K2 → (n1, n2): the inner
+    integral over x' as an (m, n2) table, then the outer over x."""
+    p = _pdf_1d(xo, mu, Sigma)
+    m = xo.shape[0]
+    K2 = k2fn(t2, xo[:, None], xo[:, None])  # (m, m): k2(x, x')
+    K1bp = k1fn(t1, xo[:, None], x2) * p[:, None]  # (m, n2): k1(x', x2_b) p(x')
+    inner = _in_row_chunks(
+        lambda c: torch.trapezoid(K2[:, :, None] * K1bp[None, :, c], xo, dim=1), x2.shape[0], m * m, 1)
+
+    def rows(r):
+        K1ap = k1fn(t1, x1[r], xo[:, None]) * p[None, :]  # (r, m): k1(x1_a, x) p(x)
+        return torch.trapezoid(K1ap[:, :, None] * inner[None, :, :], xo, dim=1)
+
+    return _in_row_chunks(rows, x1.shape[0], m * x2.shape[0], 0)
+
+
+def approx_int_K1_int_K2(k1fn, k2fn, t1, t2, x1, xo, mu, Sigma):
+    """Trapezoid approximation of int_K1_int_K2 → (n1,)."""
+    p = _pdf_1d(xo, mu, Sigma)
+    m = xo.shape[0]
+    ik2 = _in_row_chunks(  # (m,) = ∫ k2(x, x') p(x') dx'
+        lambda r: torch.trapezoid(k2fn(t2, xo[r, None], xo[:, None]) * p[None, :], xo, dim=1), m, m, 0)
+    w = ik2 * p
+    return _in_row_chunks(lambda r: torch.trapezoid(k1fn(t1, x1[r], xo[:, None]) * w[None, :], xo, dim=1),
+                          x1.shape[0], m, 0)

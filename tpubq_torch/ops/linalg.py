@@ -106,6 +106,11 @@ def cholesky_fixed(K: torch.Tensor, mask: torch.Tensor, jitter: float = 1e-12) -
     return cholesky_fixed_fn(mask, K.dtype, jitter)(K)[0]
 
 
+def batched_cholesky(Ks: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """``cholesky_fixed`` over a leading batch axis, one mask per matrix."""
+    return cholesky_fixed_fn(masks, Ks.dtype)(Ks)[0]
+
+
 def posdef_cholesky_batched(A: torch.Tensor) -> torch.Tensor:
     """Cholesky of a (BT, n, n) stack of identity-padded Grams.
 

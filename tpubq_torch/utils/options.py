@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 #: Canonical serialization order of BQOptions fields (shared with the JAX
@@ -74,6 +75,10 @@ class BQOptions:
             raise ValueError("n_candidate must be >= 1")
         if self.max_obs < 1:
             raise ValueError("max_obs must be >= 1")
+
+    @property
+    def np_dtype(self) -> np.dtype:
+        return np.dtype(self.dtype)
 
     @property
     def torch_dtype(self) -> torch.dtype:

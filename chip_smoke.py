@@ -151,7 +151,13 @@ before the final line):
               path's shapes; cholesky_blocked at n = 32 … 1036 beside
               cholesky_ex; the refit / incremental
               sweep (ms per step at max_obs 64 … 1024) that
-              INCREMENTAL_AUTO_WINDOW is read from.
+              INCREMENTAL_AUTO_WINDOW is read from; mll_grad at the
+              benchmark fleet's fit shapes (1,024 problems × 10 rows at
+              n = 32 and 44), and on a fleet grown to 8, 20 and 40
+              observations a problem in turn (n = 52 and 64, rows of
+              every NP class in one launch): the NP each row ran at
+              (sizes_out), event and device ms beside the bound of the live
+              work, and the plain twin's agreement.
 
 Then the kernel summary line (each kernel with its launches on the main,
 marginalize, family, facade, parallel and oracle paths), the nvidia-smi line, and the final
@@ -227,6 +233,13 @@ ESM_SCORE_RTOL = 1e-3
 
 # The fleet: 64 problems of benchmarks/fleet_esm.py's recipe on one shared grid.
 FLEET_B, FLEET_N_OBS, FLEET_MAX_OBS, FLEET_STEPS = 64, 8, 32, 10
+# The benchmark's fleet (port_bench/configs/fleet_b1024.json): its fit calls
+# mll_grad on FIT_RESTARTS rows of each of 1,024 problems.
+FLEET_FIT_B = 1024
+# A fleet grown by the active loop: its problems hold GROWN_OBS observations
+# in turn at max_obs GROWN_MAX_OBS, so that its fit's calls hold rows of
+# every NP class of mll_grad's one-launch regime.
+GROWN_MAX_OBS, GROWN_OBS = 52, (8, 20, 40)
 FLEET_SINGLES = (0, 21, 42, 63)  # problems replayed as single BQs on the card
 FLEET_SINGLE_Z_RTOL = 1e-5
 # A fleet kernel against its plain version, per problem and per output (A, B,
@@ -295,6 +308,35 @@ def host_ms(fn, iters: int, warmup: int = 1) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def short_name(name: str) -> str:
+    """A device activity's name without its return type, namespace and arguments."""
+    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:60]
+
+
+def device_ms(fn, iters: int) -> tuple:
+    """(ms of device time per call, {device activity: ms per call}) over
+    ``iters`` calls of ``fn`` under ``torch.profiler``: the summed durations of
+    every kernel, memset and copy the calls put on the device, so that a
+    kernel shorter than its wrapper's host cost is read at its own length."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = short_name(e.name)
+            by[key] = by.get(key, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3 / iters
+    check(bool(by), "the profiler saw device activity")
+    return sum(by.values()), by
 
 
 def nvidia_smi() -> str:
@@ -598,6 +640,17 @@ def mll_vs_plain(thetas, s, x, y, mask, jitter: float, cond_factor: float = MLL_
         held["gradient within tolerance of the twin"] = bool((e_grad[both] <= tol_g[both]).all())
     case["failures"] = [what for what, ok in held.items() if not ok]
     return case
+
+
+def rows_to_max(case: dict) -> None:
+    """A fleet's ``mll_vs_plain`` case with each per-row list replaced by its
+    largest finite value (``<key>_max``), so that the log keeps no list of
+    thousands of rows."""
+    for key in [k for k, v in case.items() if isinstance(v, list) and k != "failures"]:
+        vals = [v for v in case.pop(key) if isinstance(v, float)]
+        if vals:
+            case[key + "_max"] = max(vals)
+    case["cond_factor"] = MLL_FLEET_COND_FACTOR
 
 
 def check_mll(dev) -> dict:
@@ -1038,11 +1091,7 @@ def check_fleet_kernels(dev) -> dict:
                                       cond_factor=MLL_FLEET_COND_FACTOR, mll_floor=float(mask[0].sum()),
                                       gp=name, rows="fleet restarts", problems=x.shape[0]))
     for c in mll_cases:  # 640 rows: keep the per-row lists out of the log
-        for key in [k for k, v in c.items() if isinstance(v, list) and k != "failures"]:
-            vals = [v for v in c.pop(key) if isinstance(v, float)]
-            if vals:
-                c[key + "_max"] = max(vals)
-        c["cond_factor"] = MLL_FLEET_COND_FACTOR
+        rows_to_max(c)
     emit("kernels_fleet", tol_norm=FLEET_NORM_TOL, max_flips=MAX_FLEET_FLIPS, cases=cases, mll_per_problem=mll_cases)
     for c in cases:
         check(not c["failures"], f"fleet kernels ({c['geometry']}, NP={c['NP']}): {c['failures']}")
@@ -3459,6 +3508,105 @@ def timing(dev, mp: dict, label: str) -> dict:
     return res
 
 
+def fleet_fit_calls(dev, B: int = FLEET_FIT_B, n_obs: int = FLEET_N_OBS, max_obs: int = FLEET_MAX_OBS) -> list:
+    """The first ``mll_grad_batched`` call of each GP in the fit of a fleet of
+    B problems of the fleet recipe (s = S_MAIN), FIT_RESTARTS rows a problem,
+    as (gp, thetas, s, x, y, mask): the log-GP at n = max_obs (its n_obs
+    observations live) and the linear GP at n = max_obs + 12 (the
+    observations and the candidates kept, in the tail)."""
+    import torch
+
+    from tpubq_torch.models import fit as fitm
+
+    st, _ = fleet_state(dev, B, n_obs, max_obs, s=S_MAIN)
+    gen = torch.Generator().manual_seed(FIT_SEED)
+    l_sc = torch.where(st.sc_mask, st.l_sc, torch.zeros_like(st.l_sc))
+    calls = []
+    for name, gp, x, y, mask in (("log_gp", st.gp_log_l, st.x_s, st.tl_s, st.obs_mask),
+                                 ("linear_gp", st.gp_l, st.x_sc, l_sc, st.sc_mask)):
+        thetas = torch.exp(fitm.random_restarts(gen, gp.theta, x, y, mask, FIT_RESTARTS).reshape(-1, 2))
+        calls.append((name, thetas.contiguous(), gp.s, x, y, mask))
+    return calls
+
+
+def grown_fleet_fit_calls(dev, B: int = FLEET_FIT_B) -> list:
+    """``fleet_fit_calls`` on a fleet at max_obs GROWN_MAX_OBS whose problems
+    hold GROWN_OBS observations in turn, as after the active loop has grown
+    them: each GP's call (n = 52 and 64) holds rows of NP 16, 32 and 64 side
+    by side."""
+    import torch
+
+    parts = [fleet_fit_calls(dev, B, n_obs, GROWN_MAX_OBS) for n_obs in GROWN_OBS]
+    turn, problem = torch.arange(B, device=dev) % len(parts), torch.arange(B, device=dev)
+    calls = []
+    for gp in range(2):
+        def pick(k):  # problem i from part i % len(parts)
+            shape = parts[0][gp][k].shape
+            return torch.stack([p[gp][k].reshape(B, -1) for p in parts])[turn, problem].reshape(shape).contiguous()
+
+        calls.append((parts[0][gp][0], *(pick(k) for k in range(1, 6))))
+    return calls
+
+
+def _np_classes(mask, B: int):
+    """The NP at which the one-launch regime of ``mll_grad_batched`` runs each
+    of B rows on per-problem data with this (P, n) mask: the smallest of 16,
+    32 and the launch's (the least of 16, 32, 64 that holds n) that holds the
+    row's live points."""
+    import torch
+
+    n = mask.shape[-1]
+    live = mask.sum(-1).repeat_interleave(B // mask.shape[0])
+    launch = 16 if n <= 16 else 32 if n <= 32 else 64
+    return torch.where(live <= 16, 16, torch.where(live <= 32, 32, launch)).to(torch.uint8)
+
+
+def fleet_fit_mll(dev, label: str) -> dict:
+    """``mll_grad_batched`` at the benchmark fleet's fit shapes, 10,240 rows
+    at n = 32 and n = 44 (``fleet_fit_calls``), and at the same shapes on a
+    grown fleet (``grown_fleet_fit_calls``: rows of every class in one
+    launch, eight rows a block): the NP each row ran at (``sizes_out``)
+    against the class its mask implies, CUDA-event ms (two turns) and device
+    ms beside the bound of the rows' live work (n³ + 27n² a row at its live
+    count), and the plain twin's agreement by ``mll_vs_plain``'s rule for a
+    fleet."""
+    import torch
+
+    from tpubq_torch.ops import hopper_kernels as hk
+
+    out = {}
+    calls = [("", c) for c in fleet_fit_calls(dev)] + [("_grown", c) for c in grown_fleet_fit_calls(dev)]
+    for tag, (name, thetas, s, x, y, mask) in calls:
+        B, n = thetas.shape[0], x.shape[-2]
+        sizes = torch.zeros(B, dtype=torch.uint8, device=dev)
+        hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7, sizes_out=sizes)
+        torch.cuda.synchronize()
+        classes, counts = torch.unique(sizes, return_counts=True)
+        live = mask.sum(-1).double().repeat_interleave(B // mask.shape[0])
+        fn = lambda: hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7)  # noqa: E731
+        turns = [cuda_ms(fn, 50) for _ in range(2)]
+        dms, by = device_ms(fn, 20)
+        case = mll_vs_plain(thetas, s, x, y, mask, 1e-7, cond_factor=MLL_FLEET_COND_FACTOR,
+                            mll_floor=float(mask[0].sum()), gp=name, rows="fleet fit restarts",
+                            problems=x.shape[0])
+        rows_to_max(case)
+        b = bound(mll_bytes(B, n * x.shape[0]), float((live**3 + 27.0 * live**2).sum()))
+        out[f"{B}x{n}{tag}"] = dict(
+            gp=name, live_mean=float(live.mean()), live_max=int(live.max()),
+            sizes_hist={int(k): int(v) for k, v in zip(classes.tolist(), counts.tolist())},
+            sizes_match_masks=torch.equal(sizes, _np_classes(mask, B)),
+            event_ms_turns=turns, event_ms=min(turns), device_ms=dms, device_ms_by_activity=by,
+            **b, share_of_bound=b["bound_ms"] / dms, vs_plain=case)
+    emit("fleet_fit_mll", card=label, **out)
+    for shape, r in out.items():
+        check(r["sizes_match_masks"], f"mll_grad at {shape}: sizes_out is the class each row's mask implies")
+        check(r["sizes_hist"].get(16, 0) > 0, f"mll_grad at {shape}: rows of the fleet's shapes run at NP 16")
+        check(set(r["sizes_hist"]) == {16, 32, 64} or not shape.endswith("_grown"),
+              f"mll_grad at {shape}: rows of every NP class in one launch")
+        check(not r["vs_plain"]["failures"], f"mll_grad at {shape} ({r['gp']}): {r['vs_plain']['failures']}")
+    return out
+
+
 def fleet_timing(dev, fk: dict, fp: dict, mp: dict, label: str) -> dict:
     """CUDA-event times of the two fleet kernels, their plain versions and the
     plain batched scorer at the three B = 64 shapes; the elementwise combine
@@ -3626,6 +3774,7 @@ def main() -> int:
     s0_observation(dev)
     t = timing(dev, mp, label)
     ft = fleet_timing(dev, fk, fp, mp, label)
+    ff = fleet_fit_mll(dev, label)
     lt = large_timing(dev, label)
 
     # Bounds from this run's shapes: each input read once and each output written once
@@ -3665,6 +3814,8 @@ def main() -> int:
              ms_at_10x32=t["mll_grad"][f"{mB}x{NP2}"]["kernel_ms"],
              bound_ms_at_10x32=bound(mll_bytes(mB, NP2), mll_ops(mB, NP2))["bound_ms"],
              fleet_launches=fp["launches"]["mll_grad"], fleet_max_abs_err=fk["mll_max_abs_err"],
+             fleet_fit={k: {q: v[q] for q in ("event_ms", "device_ms", "bound_ms", "share_of_bound", "sizes_hist")}
+                        for k, v in ff.items()},
              fleet_bound_ms=bound(mll_bytes(FLEET_B * FIT_RESTARTS, FLEET_MAX_OBS),
                                   mll_ops(FLEET_B * FIT_RESTARTS, FLEET_MAX_OBS))["bound_ms"],
              large_fit_launches=lf["launches"]["mll_grad"], large_max_abs_err=lm["max_abs_err"],

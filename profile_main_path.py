@@ -72,7 +72,8 @@ of PERF.md's table at the paths' shapes (``chol_batch`` at ``CHOL_SHAPES``
 with the library's ``cholesky_ex`` beside it, ``cholesky_batched`` above 64
 rows and panels of 32 forced at 44 (``chol_panels``); ``gaussian_gram``
 at ``GRAM_SHAPES``; ``mll_grad`` at (10, 32), (10, 44),
-(640, 32), (10, 256) and (10, 1036), and at (10, 64), (10, 96) and (10, 128)
+(640, 32), the benchmark fleet's (10240, 32) and (10240, 44), (10, 256) and
+(10, 1036), and at (10, 64), (10, 96) and (10, 128)
 by the wrapper's regime and by the tiles: ``MLL_CROSSOVER``; the fleet
 kernels at the three B = 64 fleets of ``FLEET_SHAPES``), with the library
 call beside it where there is one, each as CUDA-event ms over a loop of wrapper calls (two turns)
@@ -115,11 +116,6 @@ def busy_us(events) -> tuple[float, int]:
     return total, len(spans)
 
 
-def short_name(name: str) -> str:
-    """A device activity's name without its return type, namespace and arguments."""
-    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:60]
-
-
 def profile_piece(name: str, fn, iters: int, out, profiles: int = 1, count_reads: bool = False) -> dict:
     import collections
 
@@ -142,7 +138,7 @@ def profile_piece(name: str, fn, iters: int, out, profiles: int = 1, count_reads
             torch.cuda.synchronize()
         busy, n_kernels = busy_us(prof.events())
         cs.check(n_kernels > 0, f"{name}: the profiler saw device kernels")
-        names = collections.Counter(short_name(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)
+        names = collections.Counter(cs.short_name(e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)
         runs.append((busy * 1e-3, n_kernels, names))
         out.write(json.dumps({"piece": name, "kernel_names": dict(sorted(names.items()))}) + "\n")
     busy_ms, n_kernels, _ = runs[0]
@@ -394,36 +390,13 @@ def profile_single(dev, grid, iters: int, out, want, profiles: int = 1) -> None:
     bq._state = st
 
 
-def device_ms(fn, iters: int) -> tuple:
-    """(ms of device time per call, {device activity: ms per call}) over
-    ``iters`` calls of ``fn`` under ``torch.profiler``: the summed durations of
-    every kernel, memset and copy the calls put on the device, so that a
-    kernel shorter than its wrapper's host cost is read at its own length."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = short_name(e.name)
-            by[key] = by.get(key, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3 / iters
-    cs.check(bool(by), "the profiler saw device activity")
-    return sum(by.values()), by
-
-
 def kernel_cases(dev) -> list:
     """(kernel, shape, call, calls per timing) for every kernel row of
     PERF.md's table, on the inputs chip_smoke.py builds: the main path's
     shapes, the fleet's at B = 64, and the large-N path's at max_obs 1024;
-    ``mll_grad`` also at (640, 32), (10, 256) and (10, 1036), and by both
-    regimes at ``MLL_CROSSOVER``."""
+    ``mll_grad`` also at (640, 32), at the benchmark fleet's fit shapes
+    (``chip_smoke.fleet_fit_calls``), at (10, 256) and (10, 1036), and by
+    both regimes at ``MLL_CROSSOVER``."""
     import torch
 
     from tpubq_torch.models import acquire, batched, fit as fitm
@@ -457,6 +430,9 @@ def kernel_cases(dev) -> list:
                                         cs.FIT_RESTARTS)).repeat(cs.FLEET_B, 1)
     cases.append(("mll_grad", f"{th.shape[0]}x{fleet.x_s.shape[1]}",
                   lambda: hk.mll_grad_batched(th, g.s, fleet.x_s, fleet.tl_s, fleet.obs_mask, jitter=1e-7), 100))
+    for _, th_f, s_f, x_f, y_f, m_f in cs.fleet_fit_calls(dev):  # the benchmark fleet's fit: 10,240 rows
+        cases.append(("mll_grad", f"{th_f.shape[0]}x{x_f.shape[1]}",
+                      lambda a=(th_f, s_f, x_f, y_f, m_f): hk.mll_grad_batched(*a, jitter=1e-7), 50))
     for m in cs.LARGE_MLL_SHAPES:
         th_l, s_l, x_l, y_l, m_l = cs.large_mll_case(dev, m)
         cases.append(("mll_grad", f"{th_l.shape[0]}x{x_l.shape[0]}",
@@ -592,7 +568,7 @@ def kernel_times(dev, label: str, only: str | None = None) -> None:
     the kernels whose name starts with it): CUDA-event ms per call over a loop
     of wrapper calls, in two turns (what chip_smoke.py reports, the host's
     pace where a kernel is shorter than its wrapper), and the device ms per
-    call under ``torch.profiler`` (``device_ms``). A shape this version of the
+    call under ``torch.profiler`` (``chip_smoke.device_ms``). A shape this version of the
     package does not take is reported as such."""
     if not only or "device_context".startswith(tuple(only.split(","))):
         print(json.dumps({"kernel": "device_context", "card": label, **device_context_us(dev)}), flush=True)
@@ -604,7 +580,7 @@ def kernel_times(dev, label: str, only: str | None = None) -> None:
         except ValueError as e:
             print(json.dumps({"kernel": kernel, "shape": shape, "card": label, "unsupported": str(e)}), flush=True)
             continue
-        dms, by = device_ms(fn, it)
+        dms, by = cs.device_ms(fn, it)
         print(json.dumps({"kernel": kernel, "shape": shape, "card": label, "event_ms_turns": turns,
                           "event_ms": min(turns), "device_ms": dms, "device_ms_by_activity": by}), flush=True)
 

@@ -125,6 +125,34 @@ def test_mll_grad_plain_matches_float64_autograd_and_ignores_pads():
     np.testing.assert_array_equal(g_b.numpy(), g32.numpy())
 
 
+@pytest.mark.parametrize("n,live", [(16, 5), (20, 1), (32, 8), (44, 12), (44, 17), (64, 33)])
+def test_mll_grad_plain_equals_its_live_points_gathered_to_the_front(n, live):
+    """The premise of the one-block kernel's compaction: a row's MLL and
+    gradient on data whose live points are scattered over n slots (a prefix
+    of observations, the rest scattered through the tail, junk in the pads,
+    as in a fleet's linear GP) equal, in float64 to 1e-12, the same function
+    on those points gathered in slot order to the front with n cut to the
+    live count."""
+    rng = np.random.RandomState(n + live)
+    P, reps = 3, 4
+    x = rng.uniform(-2.2, 2.2, (P, n, 1))
+    y = np.sin(2.0 * x[..., 0]) + 0.05 * rng.randn(P, n)
+    head = min(live, 8)
+    mask = np.zeros((P, n), bool)
+    for p in range(P):
+        mask[p, :head] = True
+        mask[p, head + rng.choice(n - head, live - head, replace=False)] = True
+    thetas = np.exp(np.log([0.7, 0.8]) + 0.4 * rng.randn(P * reps, 2))
+    s = _t([0.05, 0.1, 0.2])
+    mll, grad = hk.mll_grad_batched_plain(_t(thetas), s, _t(x), _t(y), torch.as_tensor(mask), 1e-7)
+    for p in range(P):
+        rows = slice(p * reps, (p + 1) * reps)
+        m_g, g_g = hk.mll_grad_batched_plain(_t(thetas[rows]), s[p], _t(x[p][mask[p]]), _t(y[p][mask[p]]),
+                                             torch.ones(live, dtype=torch.bool), 1e-7)
+        np.testing.assert_allclose(mll[rows].numpy(), m_g.numpy(), rtol=1e-12, atol=0.0)
+        np.testing.assert_allclose(grad[rows].numpy(), g_g.numpy(), rtol=1e-12, atol=1e-12)
+
+
 def test_mll_grad_wrapper_rejects_bad_input():
     x, y, mask = _sine_data()
     f32 = torch.float32
@@ -135,11 +163,13 @@ def test_mll_grad_wrapper_rejects_bad_input():
         hk.mll_grad_batched(_t(THETAS, f32)[:, :1], *good[1:])
     with pytest.raises(ValueError, match="mask"):
         hk.mll_grad_batched(*good[:4], torch.as_tensor(mask).float())
-    # no size cap: one block per row up to 64 rows, four launches of tiles above
+    # no size cap: one launch up to 64 rows, four launches of tiles above
     assert [hk.mll_grad_launches(n) for n in (1, 44, 64, 65, 128, 168, 1036)] == [1, 1, 1, 4, 4, 4, 4]
     empty = (_t(np.zeros((0, 1)), f32), _t(np.zeros(0), f32), torch.zeros(0, dtype=torch.bool))
     with pytest.raises(ValueError, match="at least one data row"):
         hk.mll_grad_batched(*good[:2], *empty)
+    with pytest.raises(ValueError, match="sizes_out is the CUDA kernel's"):
+        hk.mll_grad_batched(*good, sizes_out=torch.zeros(len(THETAS), dtype=torch.uint8))
 
 
 def test_dlog_mll_matches_jax_and_confines_a_failed_row():

@@ -384,8 +384,8 @@ def _live_condition(thetas, x, mask, s, jitter):
 
 @pytest.mark.parametrize("n", [5, 32, 44, 64, 65, 128, 129, 167, 300, 1036])
 def test_mll_grad_kernel_matches_plain(cuda, n):
-    """B = 10 rows at both regimes and their edges: one block per row up to
-    64 rows (NP = 16, 32, 64 with identity pads), 64 × 64 tiles above (65
+    """B = 10 rows at both regimes and their edges: one launch up to 64
+    rows (NP = 16, 32, 64 with identity pads), 64 × 64 tiles above (65
     and 129: one row in the last tile). Up to 167 rows well-conditioned rows
     (noise 0.1), held at 1e-4 relative on the MLL and 1e-3 of the row's
     largest gradient entry; in the tiles |MLL| is floored at the live count
@@ -448,19 +448,89 @@ def test_mll_grad_kernel_rejects_what_it_does_not_take(cuda):
     s = torch.tensor(0.1, device=cuda)
     stream = torch.cuda.current_stream(cuda).cuda_stream
 
-    def call(sp, nf, yp, ni):
+    sizes = torch.zeros(2, dtype=torch.uint8, device=cuda)
+
+    def call(sp, nf, yp, ni, zp=None):
         return lib.tpubq_mll_grad(thetas.data_ptr(), s.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
-                                  1e-10, 2, 168, 2, 0, 0, sp, nf, yp, ni, mll.data_ptr(), grad.data_ptr(), stream)
+                                  1e-10, 2, 168, 2, 0, 0, sp, nf, yp, ni, mll.data_ptr(), grad.data_ptr(), zp,
+                                  stream)
 
     assert call(scratch.data_ptr(), floats.value - 1, sync.data_ptr(), ints.value) != 0
     assert call(scratch.data_ptr(), floats.value, sync.data_ptr(), ints.value - 1) != 0
     assert call(None, 0, None, 0) != 0
+    assert call(scratch.data_ptr(), floats.value, sync.data_ptr(), ints.value, sizes.data_ptr()) != 0
+    with pytest.raises(ValueError, match="sizes_out"):
+        hk.mll_grad_batched(thetas, 0.1, x, y, mask, sizes_out=sizes)
+    with pytest.raises(ValueError, match="sizes_out"):
+        hk.mll_grad_batched(thetas, 0.1, x[:44], y[:44], mask[:44], sizes_out=sizes.int())
     torch.cuda.synchronize()
     thetas, x, y, mask = _mll_problem(np.random.RandomState(6), 2, 12, 12, cuda)
     with pytest.raises(TypeError):
         hk.mll_grad_batched(thetas.double(), 0.1, x, y, mask)
     with pytest.raises(ValueError):
         hk.mll_grad_batched(thetas, 0.1, x.cpu(), y, mask)
+
+
+#: Live points per problem of the mixed-size calls: every NP class and its edges.
+MIXED_LIVE = (1, 8, 12, 16, 17, 31, 33)
+
+
+@pytest.mark.parametrize("n", [32, 44, 64])
+def test_mll_grad_kernel_runs_each_row_at_its_live_size(cuda, n):
+    """One call on problems shaped like a fleet's (a prefix of up to 8
+    observations, the other live points scattered through the tail, junk in
+    the pads) with 1, 8, 12, 16, 17, 31, 33 and all n points live, 10 rows
+    each: rows of every NP class in one launch. Held to the twin at 1e-4 on
+    the MLL (atol 1e-4) and 1e-3 of the row's largest gradient entry;
+    ``sizes_out`` reads, row by row, the class the live count implies; a
+    repeat is bit-identical, and so is one problem alone in the shared-data
+    form. Then the same rows, one problem each, their classes interleaved and
+    repeated past 64 rows an SM, so that the launch packs eight rows to a
+    block whatever the card's occupancy (NP-16 rows a warp each, the others
+    by the block in turn): each row to the bit of the first call."""
+    rng = np.random.RandomState(n)
+    lives = [k for k in MIXED_LIVE if k < n] + [n]
+    P, reps = len(lives), 10
+    f32 = dict(dtype=torch.float32, device=cuda)
+    x = rng.uniform(-2.2, 2.2, (P, n, 1))
+    y = np.sin(2.0 * x[..., 0]) + 0.05 * rng.randn(P, n)
+    mask = np.zeros((P, n), bool)
+    for p, live in enumerate(lives):
+        head = min(live, 8)
+        mask[p, :head] = True
+        mask[p, head + rng.choice(n - head, live - head, replace=False)] = True
+    thetas = np.exp(np.log([0.7, 0.8]) + 0.4 * rng.randn(P * reps, 2))
+    thetas, x, y = (torch.as_tensor(a, **f32) for a in (thetas, x, y))
+    mask = torch.as_tensor(mask, device=cuda)
+    s = torch.full((P,), 0.1, **f32)
+    sizes = torch.zeros(P * reps, dtype=torch.uint8, device=cuda)
+    before = hk.mll_grad_batched.launches
+    mll, grad = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7, sizes_out=sizes)
+    mll2, grad2 = hk.mll_grad_batched(thetas, s, x, y, mask, jitter=1e-7)
+    torch.cuda.synchronize()
+    assert hk.mll_grad_batched.launches == before + 2
+    assert torch.equal(mll, mll2) and torch.equal(grad, grad2)
+    launch = 32 if n <= 32 else 64
+    want = [16 if k <= 16 else 32 if k <= 32 else launch for k in lives for _ in range(reps)]
+    assert sizes.tolist() == want
+    ref_mll, ref_grad = hk.mll_grad_batched_plain(thetas, s, x, y, mask, 1e-7)
+    torch.testing.assert_close(mll, ref_mll, rtol=1e-4, atol=1e-4)
+    assert bool(((grad - ref_grad).abs() <= 1e-3 * ref_grad.abs().amax(-1, keepdim=True)).all())
+    for p in (1, P - 1):
+        rows = slice(p * reps, (p + 1) * reps)
+        alone = hk.mll_grad_batched(thetas[rows], s[p], x[p], y[p], mask[p], jitter=1e-7)
+        assert torch.equal(alone[0], mll[rows]) and torch.equal(alone[1], grad[rows])
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    order = torch.arange(P * reps, device=cuda).reshape(P, reps).T.reshape(-1)  # classes interleaved
+    order = order.repeat(-(-64 * sms // order.numel()))
+    prob = order // reps
+    sizes = torch.zeros(order.numel(), dtype=torch.uint8, device=cuda)
+    mll_p, grad_p = hk.mll_grad_batched(thetas[order].contiguous(), s[prob].contiguous(), x[prob].contiguous(),
+                                        y[prob].contiguous(), mask[prob].contiguous(), jitter=1e-7,
+                                        sizes_out=sizes)
+    assert torch.equal(sizes, torch.tensor(want, device=cuda)[order])
+    assert torch.equal(mll_p, mll[order]) and torch.equal(grad_p, grad[order])
 
 
 @pytest.mark.parametrize("max_obs", [32, 256])
@@ -697,7 +767,7 @@ def test_fleet_kernels_bit_identical(cuda, NP, NP2):
 @pytest.mark.parametrize("max_obs", [32, 256])
 def test_mll_grad_kernel_per_problem_data_matches_plain(cuda, max_obs):
     """640 rows on 64 problems' data in one call against the twin, at 32 rows
-    (one block per row) and 256 (the tiles), and a fleet of one problem
+    (one launch) and 256 (the tiles), and a fleet of one problem
     against the shared-data form to the bit."""
     states, _ = _fleet_state(cuda, 64, 8, max_obs, s=0.1)
     x, y, mask, s = states.x_s, states.tl_s, states.obs_mask, states.gp_log_l.s

@@ -25,15 +25,27 @@
 // large n and B. Two regimes; the caller picks one from n alone, and gives
 // the tiles a scratch (tpubq_mll_grad):
 //
-//   * n <= 64 (mll_small_kernel, one launch): one block per row, the row's
-//     Gram padded with identity rows to NP = 16, 32 or 64 (exact: a pad
-//     has L = Y = 1, alpha = 0 and dK = 0, and is masked out of the log-det)
-//     and built in shared memory from x. It is factored and inverted in one
-//     pass by 2 x 2 blocking down to 16 x 16 warp leaves (chol_tile.cuh,
-//     shared with chol_blocked.cu), K^-1 = Y^T Y is a register-blocked
-//     product over the block, and dK/dh and dK/dw are formed from x in the
-//     epilogue over the lower triangle, the five sums reduced in a fixed
-//     order.
+//   * n <= 64 (mll_small_kernel, one launch, shared memory fixed by the
+//     launch's NP = 16, 32 or 64 >= n). A row costs what the size it runs at
+//     costs, ~NP^3 operations on a chain of ~3 NP dependent steps, however
+//     few of its n slots are live, and a fleet's rows are mostly pads (the
+//     linear GP: ~12 live points in 44 slots). So a row's live points are
+//     counted from the mask (two ballots of the row's warp, which leaves
+//     them to the block in shared memory) and gathered in slot order into
+//     the first slots (a stable compaction; a permutation of the points
+//     leaves the log-det, y^T K^-1 y and the traces as they are), and the
+//     row runs at the smallest NP of 16, 32 and the launch's that holds
+//     them, the rest identity pads (exact: a pad has L = Y = 1, alpha = 0
+//     and dK = 0, and is left out of the log-det). An NP-16 row takes one
+//     warp (warp_row, chol16_warp's factor and inverse), so a block takes
+//     up to 8 rows wherever its launch would still fill every SM (the host
+//     divides B by the SMs' resident blocks, read once per device). A row
+//     at NP 32 or 64 takes the whole block: its Gram is built in shared
+//     memory from x, factored and inverted in one pass by 2 x 2 blocking
+//     down to 16 x 16 warp leaves (chol_tile.cuh, shared with
+//     chol_blocked.cu), K^-1 = Y^T Y is a register-blocked product over the
+//     block, and dK/dh and dK/dw are formed from x in the epilogue over the
+//     lower triangle, the five sums reduced in a fixed order.
 //   * n > 64 (four launches, no size limit): the rows' Grams are cut into
 //     64 x 64 tiles, NP = 64 ceil(n / 64), with L and Y kept in a device
 //     scratch of (B, NP, NP) floats each (the caller allocates it; its
@@ -64,6 +76,8 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cfloat>
 
 #include "chol_tile.cuh"
@@ -74,6 +88,7 @@ using namespace tpubq_tile;
 
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr int kSums = 5;  // dmll/dh, dmll/dw, y^T alpha, sum log L_ii, n_live
+constexpr int kWarps = kThreads / 32;
 
 // One row's data and hyperparameters.
 struct Row {
@@ -137,7 +152,6 @@ template <int K>
 __device__ __forceinline__ void block_sums(float (&p)[K], float* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  constexpr int kWarps = kThreads / 32;
 #pragma unroll
   for (int q = 0; q < K; ++q) {
 #pragma unroll
@@ -163,41 +177,165 @@ __device__ __forceinline__ void write_row(float* mll, float* grad, int b, const 
 }
 
 // ---------------------------------------------------------------------------
-// n <= 64: one block per row
+// n <= 64: one launch, a row at the NP its live points need
 // ---------------------------------------------------------------------------
 
-// Shared memory of mll_small_kernel<NP>, in floats.
-__host__ __device__ constexpr int small_tmp(int NP) { return NP * NP / 4 > 256 ? NP * NP / 4 : 256; }
-__host__ __device__ constexpr int small_smem(int NP) {
-  return small_tmp(NP) + 2 * NP * (NP + 1) + 5 * NP + kSums * kThreads / 32;
+// The live slots of a row of n <= 64 points as two bit masks (slots 0-31
+// and 32-63), each a warp's ballot over the mask bytes.
+struct Live {
+  unsigned lo, hi;
+
+  __device__ int count() const { return __popc(lo) + __popc(hi); }
+  __device__ bool has(int i) const { return ((i < 32 ? lo >> i : hi >> (i - 32)) & 1u) != 0; }
+  // live slots before slot i: its place in the compacted row
+  __device__ int rank(int i) const {
+    return i < 32 ? __popc(lo & ((1u << i) - 1u)) : __popc(lo) + __popc(hi & ((1u << (i - 32)) - 1u));
+  }
+};
+
+__device__ __forceinline__ Live live_slots(const Row& p) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  return Live{__ballot_sync(full, lane < p.n && p.mask[lane]),
+              __ballot_sync(full, 32 + lane < p.n && p.mask[32 + lane])};
 }
 
-template <int NP>
-__global__ void __launch_bounds__(kThreads, 3) mll_small_kernel(Args args, float* __restrict__ mll,
-                                                             float* __restrict__ grad) {
-  constexpr int LD = NP + 1;  // odd: the products' strided reads spread over the banks
-  extern __shared__ __align__(16) float smem[];
-  float* tmp = smem;                 // the recursion's scratch (16-byte aligned)
-  float* a = tmp + small_tmp(NP);    // [NP][LD] Gram, then L, then K^-1
-  float* Y = a + NP * LD;            // [NP][LD] L^-1, row-major
-  float* xs = Y + NP * LD;           // [NP]
-  float* ms = xs + NP;               // [NP] mask as 0/1
-  float* ys = ms + NP;               // [NP] targets, zero at pads
-  float* dg = ys + NP;               // [NP] diagonal of L
-  float* al = dg + NP;               // [NP] alpha
-  float* red = al + NP;              // [kSums][kThreads / 32]
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
-  const int n = args.n;
-  const Row p = args.row(b);
+// Shared memory of one warp's row at NP 16 (warp_row), in floats: the
+// factor's staged columns (16-byte aligned), the Gram (then L, then K^-1's
+// lower triangle) and Y at stride 17, x, y, L's diagonal and alpha.
+constexpr int kWarpLD = 17;
+constexpr int kWarpSmem = 256 + 2 * 16 * kWarpLD + 4 * 16;
 
-  for (int i = tid; i < NP; i += kThreads) {
-    xs[i] = p.xv(i);
-    ms[i] = p.mv(i);
-    ys[i] = p.yv(i);
+// Shared memory of small_row<NP>, in floats: the recursion's scratch, the
+// Gram (then L, then K^-1) and Y at stride NP + 1, x, y, L's diagonal, alpha
+// and block_sums' partials.
+__host__ __device__ constexpr int small_tmp(int NP) { return NP * NP / 4 > 256 ? NP * NP / 4 : 256; }
+__host__ __device__ constexpr int block_smem(int NP) {
+  return small_tmp(NP) + 2 * NP * (NP + 1) + 4 * NP + kSums * kThreads / 32;
+}
+// A launch's, fixed by its NP: a row at NP 32 or 64 in the whole block, or
+// one NP-16 row in each warp.
+__host__ __device__ constexpr int small_smem(int NP) {
+  return NP > 16 && block_smem(NP) > kWarps * kWarpSmem ? block_smem(NP) : kWarps * kWarpSmem;
+}
+static_assert(small_smem(64) * sizeof(float) <= 48 * 1024, "the one-launch regime needs no opt-in shared memory");
+
+// Row b at NP 16 by one warp, from its m <= 16 live points gathered in slot
+// order into the first m slots (the rest the identity's pads), in its own
+// kWarpSmem floats at s. chol16_warp factors and inverts. Lane l then owns
+// the entries (r, c) = (2e + l / 16, l % 16), e < 8, of K^-1 and of the
+// gradient's terms: each sum in a fixed order, the eight of a lane
+// independent of each other, then the five totals by one shuffle tree.
+__device__ __forceinline__ void warp_row(const Row& p, const Live& live, int m, float* s, int b,
+                                         float* __restrict__ mll, float* __restrict__ grad,
+                                         unsigned char* __restrict__ sizes) {
+  constexpr int LD = kWarpLD;
+  float* cols = s;           // [16][16] chol16_warp's staged columns
+  float* a = cols + 256;     // [16][LD] Gram, then L, then K^-1
+  float* Y = a + 16 * LD;    // [16][LD] L^-1, row-major
+  float* xs = Y + 16 * LD;   // [16]
+  float* ys = xs + 16;       // [16] targets, zero at pads
+  float* dg = ys + 16;       // [16] diagonal of L
+  float* al = dg + 16;       // [16] alpha
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int r0 = lane / 16;  // the lane's entries: rows r0 + 2e, column c
+  const int c = lane % 16;
+
+  for (int i = lane; i < p.n; i += 32) {
+    if (live.has(i)) {
+      const int r = live.rank(i);
+      xs[r] = p.x[i];
+      ys[r] = p.y[i];
+    }
+  }
+  if (lane >= m && lane < 16) {
+    xs[lane] = 0.f;
+    ys[lane] = 0.f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int i = r0 + 2 * e;
+    if (c <= i) a[i * LD + c] = i < m ? p.gram(xs[i], xs[c], 1.f, 1.f, i == c) : (i == c ? 1.f : 0.f);
+  }
+  __syncwarp();
+  chol16_warp(a, LD, Y, LD, 1, cols);
+  if (lane < 16) dg[lane] = a[lane * LD + lane];
+  __syncwarp();
+  // K^-1(r, c) = sum_k Y(k, r) Y(k, c), every entry (so K^-1 is symmetric to the bit)
+  float kinv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const float yc = Y[k * LD + c];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) kinv[e] = fmaf(Y[k * LD + r0 + 2 * e], yc, kinv[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a[(r0 + 2 * e) * LD + c] = kinv[e];
+  __syncwarp();
+  if (lane < 16) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc = fmaf(a[lane * LD + j], ys[j], acc);
+    al[lane] = acc;
+  }
+  __syncwarp();
+  float q[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int i = r0 + 2 * e;
+    if (c <= i && i < m) {
+      const float g = kinv[e] - al[i] * al[c];
+      p.grad_terms(i == c ? g : 2.f * g, xs[i], xs[c], 1.f, 1.f, i == c, q[0], q[1]);
+    }
+  }
+  if (lane < m) {
+    q[2] = ys[lane] * al[lane];
+    q[3] = logf(dg[lane]);
+    q[4] = 1.f;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) q[k] += __shfl_down_sync(full, q[k], off);
+  if (lane == 0) {
+    write_row(mll, grad, b, q);
+    if (sizes != nullptr) sizes[b] = 16;
+  }
+  __syncwarp();  // the slice is read before another row writes it
+}
+
+// Row b at NP 32 or 64 by the whole block, from its m <= NP live points
+// gathered in slot order into the first m slots; slots m..NP-1 are the
+// identity's pads.
+template <int NP>
+__device__ __forceinline__ void small_row(const Row& p, const Live& live, int m, float* smem, int b,
+                                          float* __restrict__ mll, float* __restrict__ grad,
+                                          unsigned char* __restrict__ sizes) {
+  static_assert(NP == 32 || NP == 64, "NP 16 rows run in a warp (warp_row)");
+  constexpr int LD = NP + 1;  // odd: the products' strided reads spread over the banks
+  float* tmp = smem;               // the recursion's scratch (16-byte aligned)
+  float* a = tmp + small_tmp(NP);  // [NP][LD] Gram, then L, then K^-1
+  float* Y = a + NP * LD;          // [NP][LD] L^-1, row-major
+  float* xs = Y + NP * LD;         // [NP]
+  float* ys = xs + NP;             // [NP] targets, zero at pads
+  float* dg = ys + NP;             // [NP] diagonal of L
+  float* al = dg + NP;             // [NP] alpha
+  float* red = al + NP;            // [kSums][kThreads / 32]
+  const int tid = threadIdx.x;
+
+  if (tid < p.n && live.has(tid)) {
+    const int r = live.rank(tid);
+    xs[r] = p.x[tid];
+    ys[r] = p.y[tid];
+  }
+  if (tid >= m && tid < NP) {
+    xs[tid] = 0.f;
+    ys[tid] = 0.f;
   }
   __syncthreads();
-  // the Gram's lower triangle, the recursion reads no more (rows past n
+  // the Gram's lower triangle, the recursion reads no more (rows past m
   // are the identity's); a trip count fixed at compile time, unrolled, so
   // that the entries' exponentials overlap
 #pragma unroll 4
@@ -205,15 +343,10 @@ __global__ void __launch_bounds__(kThreads, 3) mll_small_kernel(Args args, float
     const int t = e * kThreads + tid;
     const int i = t / NP;
     const int j = t % NP;
-    if (j <= i) a[i * LD + j] = i < n ? p.gram(xs[i], xs[j], ms[i], ms[j], i == j) : (i == j ? 1.f : 0.f);
+    if (j <= i) a[i * LD + j] = i < m ? p.gram(xs[i], xs[j], 1.f, 1.f, i == j) : (i == j ? 1.f : 0.f);
   }
   __syncthreads();
-  if constexpr (NP == 16) {
-    if (tid < 32) chol16_warp(a, LD, Y, LD, 1, tmp);
-    __syncthreads();
-  } else {
-    chol_2x2<NP / 2>(a, LD, Y, LD, 1, tmp, true, tid);
-  }
+  chol_2x2<NP / 2>(a, LD, Y, LD, 1, tmp, true, tid);
   for (int i = tid; i < NP; i += kThreads) dg[i] = a[i * LD + i];
   __syncthreads();
 
@@ -251,18 +384,57 @@ __global__ void __launch_bounds__(kThreads, 3) mll_small_kernel(Args args, float
     const int t = e * kThreads + tid;
     const int i = t / NP;
     const int j = t % NP;
-    if (j <= i && i < n) {
+    if (j <= i && i < m) {
       const float g = a[i * LD + j] - al[i] * al[j];
-      p.grad_terms(i == j ? g : 2.f * g, xs[i], xs[j], ms[i], ms[j], i == j, q[0], q[1]);
+      p.grad_terms(i == j ? g : 2.f * g, xs[i], xs[j], 1.f, 1.f, i == j, q[0], q[1]);
     }
   }
-  for (int i = tid; i < n; i += kThreads) {
+  for (int i = tid; i < m; i += kThreads) {
     q[2] += ys[i] * al[i];
-    q[3] += ms[i] > 0.f ? logf(dg[i]) : 0.f;
-    q[4] += ms[i];
+    q[3] += logf(dg[i]);
+    q[4] += 1.f;
   }
   block_sums(q, red);
-  if (tid == 0) write_row(mll, grad, b, q);
+  if (tid == 0) {
+    write_row(mll, grad, b, q);
+    if (sizes != nullptr) sizes[b] = static_cast<unsigned char>(NP);
+  }
+}
+
+// Block b takes the rows_per_block (1 to kWarps) rows from rows_per_block * b.
+// Warp w reads the w-th row's live slots and takes the row itself if it runs
+// at NP 16; then the block takes the others in turn, each at NP 32 if that
+// holds it, else at the launch's NP.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, 3) mll_small_kernel(Args args, int B, int rows_per_block,
+                                                             float* __restrict__ mll, float* __restrict__ grad,
+                                                             unsigned char* __restrict__ sizes) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ Live rows_live[kWarps];
+  const int b0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, B - b0);
+  const int w = threadIdx.x >> 5;
+  if (w < rows) {
+    const Row p = args.row(b0 + w);
+    const Live live = live_slots(p);
+    const int m = live.count();
+    if ((threadIdx.x & 31) == 0) rows_live[w] = live;
+    if (m <= 16) warp_row(p, live, m, smem + w * kWarpSmem, b0 + w, mll, grad, sizes);
+  }
+  if constexpr (NP > 16) {
+    __syncthreads();  // every row's live slots are in rows_live; the warps' slices are free
+    for (int k = 0; k < rows; ++k) {
+      const Live live = rows_live[k];
+      const int m = live.count();  // the same on every thread
+      if (m <= 16) continue;
+      const Row p = args.row(b0 + k);
+      if (m <= 32)
+        small_row<32>(p, live, m, smem, b0 + k, mll, grad, sizes);
+      else if constexpr (NP == 64)
+        small_row<64>(p, live, m, smem, b0 + k, mll, grad, sizes);
+      __syncthreads();  // the row's layout is read before the next row's writes
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -654,14 +826,30 @@ __global__ void __launch_bounds__(kThreads) mll_finish_kernel(Args args, int T, 
   if (tid == 0) write_row(mll, grad, b, q);
 }
 
+// B / (the SMs' resident blocks of the launch) rows a block, 1 to kWarps:
+// a block a row until B fills every SM's slots twice, then the NP-16 rows a
+// warp each. The SMs and the kernel's blocks an SM are read once per device.
 template <int NP>
-cudaError_t launch_small(const Args& args, int B, float* mll, float* grad, cudaStream_t stream) {
+cudaError_t launch_small(const Args& args, int B, float* mll, float* grad, unsigned char* sizes,
+                         cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> slots_of[kMaxDevices];  // 0 until read
   const int smem = small_smem(NP) * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(mll_small_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  int slots = device < kMaxDevices ? slots_of[device].load(std::memory_order_relaxed) : 0;
+  if (slots == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mll_small_kernel<NP>, kThreads, smem);
     if (e != cudaSuccess) return e;
+    slots = std::max(1, sms * per_sm);
+    if (device < kMaxDevices) slots_of[device].store(slots, std::memory_order_relaxed);
   }
-  mll_small_kernel<NP><<<B, kThreads, smem, stream>>>(args, mll, grad);
+  const int rows_per_block = std::min(kWarps, std::max(1, B / slots));
+  const int blocks = (B + rows_per_block - 1) / rows_per_block;
+  mll_small_kernel<NP><<<blocks, kThreads, smem, stream>>>(args, B, rows_per_block, mll, grad, sizes);
   return cudaGetLastError();
 }
 
@@ -675,25 +863,27 @@ extern "C" void tpubq_mll_grad_scratch(int B, int n, long long* floats, long lon
   *ints = static_cast<long long>(sc.ints);
 }
 
-// Without a scratch (null): the one-block regime, one launch, n <= 64.
-// With one: the tiles, four launches, any n; scratch holds `floats` floats
-// (any contents) and sync `ints` ints, zeroed, at least what
-// tpubq_mll_grad_scratch gives, both allocated by the caller. Shared data:
-// rows_per_problem = B, data_stride = s_stride = 0. Per-problem data:
+// Without a scratch (null): the one-block regime, one launch, n <= 64;
+// `sizes`, if not null, gets each row's NP (16, 32 or 64) as B bytes. With
+// one: the tiles, four launches, any n, and `sizes` must be null; scratch
+// holds `floats` floats (any contents) and sync `ints` ints, zeroed, at least
+// what tpubq_mll_grad_scratch gives, both allocated by the caller. Shared
+// data: rows_per_problem = B, data_stride = s_stride = 0. Per-problem data:
 // data_stride = n, s_stride = 1 (0 for one shared noise).
 extern "C" int tpubq_mll_grad(const float* thetas, const float* s, const float* x, const float* y,
                               const unsigned char* mask, float jitter, int B, int n, int rows_per_problem,
                               int data_stride, int s_stride, float* scratch, long long floats, int* sync,
-                              long long ints, float* mll, float* grad, void* stream_ptr) {
+                              long long ints, float* mll, float* grad, unsigned char* sizes, void* stream_ptr) {
   if (rows_per_problem < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const Args args{thetas, s, x, y, mask, jitter, n, rows_per_problem, data_stride, s_stride};
   if (scratch == nullptr) {
-    if (n <= 16) return static_cast<int>(launch_small<16>(args, B, mll, grad, stream));
-    if (n <= 32) return static_cast<int>(launch_small<32>(args, B, mll, grad, stream));
-    if (n <= 64) return static_cast<int>(launch_small<64>(args, B, mll, grad, stream));
+    if (n <= 16) return static_cast<int>(launch_small<16>(args, B, mll, grad, sizes, stream));
+    if (n <= 32) return static_cast<int>(launch_small<32>(args, B, mll, grad, sizes, stream));
+    if (n <= 64) return static_cast<int>(launch_small<64>(args, B, mll, grad, sizes, stream));
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (sizes != nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   const int T = (n + kT - 1) / kT;
   const int U = T * (T + 1) / 2;

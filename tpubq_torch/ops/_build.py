@@ -38,7 +38,7 @@ _ll, _llp = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
 _SIG = {
     "tpubq_esm_fused": ([_p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _i, _p, _p, _p], _i),
     "tpubq_chol_batch": ([_p, _p, _i, _i, _i, _p], _i),
-    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _p, _ll, _p, _ll, _p, _p, _p], _i),
+    "tpubq_mll_grad": ([_p, _p, _p, _p, _p, _f, _i, _i, _i, _i, _i, _p, _ll, _p, _ll, _p, _p, _p, _p], _i),
     "tpubq_mll_grad_scratch": ([_i, _i, _llp, _llp], None),
     "tpubq_esm_fleet_l": (
         [_p, _p, _p, _i, _i, _p, _p, _p, _p, _p, _i, _i, _f, _f, _i, _i, _p, _p, _p, _p],

@@ -92,7 +92,7 @@ __all__ = [
 SMEM_LIMIT = 232448
 #: Largest n of ``chol_batch``; larger stacks go to ``cholesky_batched``.
 CHOL_BATCH_MAX_N = 240
-# mll_grad: one block per row up to this n, tiles above. A block of NP 128
+# mll_grad: one launch, a block or a warp per row, up to this n; tiles above. A block of NP 128
 # lost to the tiles at n = 96 and 128 (PERF.md §6, PR 7), so none is built.
 _MLL_SMALL_N = 64
 _LOG2PI = math.log(2.0 * math.pi)
@@ -405,14 +405,15 @@ def mll_grad_batched_plain(thetas, s, x, y, mask, jitter: float = 1e-10):
     return mll, grad
 
 
-def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
+def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10, sizes_out=None):
     """Masked log-MLL and its (h, w) gradient for a batch of hyperparameter
     rows of the 1-D gaussian kernel → (mll (B,), grad (B, 2)).
 
     Shapes: ``thetas`` (B, 2) positive (h, w); ``s`` a float or a 0-d tensor
     (the noise standard deviation); ``x`` (n, 1); ``y`` (n,); ``mask`` (n,)
     bool; float32, contiguous, one device; any n ≥ 1 (``mll_grad_launches(n)``
-    launches: one block per row up to 64 rows, 64 × 64 tiles above).
+    launches: one, a row at the NP its live points need, up to 64 points;
+    64 × 64 tiles above).
     ``jitter`` is relative to h² (the live diagonal). The pivot of the
     Cholesky is clamped, so a row whose Gram is not positive definite comes
     back huge or non-finite and the caller filters it. A tensor ``s`` on the
@@ -422,6 +423,10 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     scalar or (P,), with B a multiple of P: row r is evaluated on the data of
     problem r // (B / P), all in the same launch. With shared data the kernel
     reads exactly what it read before this form existed.
+
+    ``sizes_out``, a (B,) uint8 tensor on x's CUDA device, n ≤ 64 only: each
+    row's NP as the kernel ran it (16, 32 or 64: the smallest that holds the
+    row's live points). None (the fit's path) writes nothing.
     """
     if thetas.ndim != 2 or thetas.shape[1] != 2:
         raise ValueError(f"mll_grad_batched: thetas must be (B, 2), got {tuple(thetas.shape)}")
@@ -445,6 +450,14 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
     elif x.ndim != 3 or tuple(s.shape) != (P,):
         raise ValueError(f"mll_grad_batched: s must be a scalar or (P,), got {tuple(s.shape)}")
     _check_f32("mll_grad_batched", x.device, thetas=thetas, x=x, y=y, s=s)
+    if sizes_out is not None:
+        if x.device.type != "cuda":
+            raise ValueError("mll_grad_batched: sizes_out is the CUDA kernel's, and the CPU runs the twin")
+        if n > _MLL_SMALL_N:
+            raise ValueError(f"mll_grad_batched: sizes_out is the one-block regime's (n ≤ {_MLL_SMALL_N}), n={n}")
+        if (sizes_out.dtype != torch.uint8 or tuple(sizes_out.shape) != (B,) or sizes_out.device != x.device
+                or not sizes_out.is_contiguous()):
+            raise ValueError(f"mll_grad_batched: sizes_out must be a contiguous ({B},) uint8 tensor on x's device")
     if x.device.type == "cpu":
         return mll_grad_batched_plain(thetas, s, x, y, mask, jitter)
     if x.device.type != "cuda":
@@ -468,7 +481,7 @@ def mll_grad_batched(thetas, s, x, y, mask, jitter: float = 1e-10):
             float(jitter), B, n, B // P, n if x.ndim == 3 else 0, 1 if s.ndim else 0,
             None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(),
             None if sync is None else sync.data_ptr(), 0 if sync is None else sync.numel(),
-            mll.data_ptr(), grad.data_ptr(), _stream_ptr(x),
+            mll.data_ptr(), grad.data_ptr(), None if sizes_out is None else sizes_out.data_ptr(), _stream_ptr(x),
         )
         mll_grad_batched.launches += mll_grad_launches(n)
     _check(err, "mll_grad_batched")
